@@ -1,0 +1,157 @@
+"""Frame-parallel spectral descriptors over magnitude spectrograms
+(counterpart of the main-path part of `sonido_sonar_tpu/ops/spectral.py`).
+
+Reference parity: algorithms/spectral/*.go — centroid,
+bandwidth, flatness (threshold 1e-10), crest, slope (log-log masked
+regression), contrast (spectral_contrast.go:26-188: log-spaced bands
+from 200 Hz, top/bottom 20% power means, dB), zero-crossing rate
+(zero_crossing_rate.go:37-110).
+
+Frequency axis convention (reference): freqs[i] = i * nyquist / (F - 1).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from sonido_sonar_tpu_torch.ops.tables import device_table
+
+_EPS = 1e-10
+_INV_LN10 = 0.43429448190325176
+
+
+def _freq_bins(num_bins: int, sample_rate: int) -> np.ndarray:
+    nyquist = sample_rate / 2.0
+    return (np.arange(num_bins, dtype=np.float64) * nyquist / (num_bins - 1)).astype(
+        np.float32
+    )
+
+
+@functools.lru_cache(maxsize=32)
+def contrast_band_edges(
+    num_bands: int, num_bins: int, sample_rate: int
+) -> Tuple[int, ...]:
+    """Log-spaced band edges in bin units (spectral_contrast.go:139-188):
+    log10-spaced from 200 Hz to Nyquist, bin = int(f*(numBins-1)/nyquist),
+    forced strictly increasing."""
+    nyquist = sample_rate / 2.0
+    min_freq = 200.0
+    max_freq = nyquist if nyquist > min_freq else min_freq * 2
+    log_min, log_max = np.log10(min_freq), np.log10(max_freq)
+    edges = []
+    for i in range(num_bands + 1):
+        f = 10.0 ** (log_min + i * (log_max - log_min) / num_bands)
+        b = int(f * (num_bins - 1) / nyquist)
+        edges.append(min(max(b, 0), num_bins - 1))
+    for i in range(1, num_bands + 1):
+        if edges[i] <= edges[i - 1]:
+            edges[i] = edges[i - 1] + 1
+    return tuple(edges)
+
+
+def spectral_contrast(
+    magnitude: torch.Tensor, sample_rate: int, num_bands: int = 6
+) -> torch.Tensor:
+    """Per-band peak-vs-valley contrast in dB, [..., F] -> [..., num_bands].
+
+    Per band: sort the power; valley = mean of the bottom k, peak = mean
+    of the top k, k = max(int(0.2 * width), 1); the valley is floored at
+    1e-10 and contrast is 0 where the peak is <= 0
+    (spectral_contrast.go:71-137).
+    """
+    n_bins = magnitude.shape[-1]
+    edges = contrast_band_edges(num_bands, n_bins, sample_rate)
+    power = magnitude * magnitude
+    outs = []
+    for b in range(num_bands):
+        lo, hi = edges[b], min(edges[b + 1], n_bins)
+        if lo >= hi:
+            outs.append(magnitude.new_zeros(magnitude.shape[:-1]))
+            continue
+        width = hi - lo
+        k = max(int(0.2 * width), 1)
+        ordered = torch.sort(power[..., lo:hi], dim=-1).values
+        valley = torch.clamp_min(torch.mean(ordered[..., :k], dim=-1), _EPS)
+        peak = torch.mean(ordered[..., width - k:], dim=-1)
+        outs.append(torch.where(peak > 0, 10.0 * torch.log10(peak / valley), 0.0))
+    return torch.stack(outs, dim=-1)
+
+
+def zero_crossings(frames: torch.Tensor) -> torch.Tensor:
+    """Count of sign changes per frame, [..., W] -> [...] (a change is a
+    flip of (x >= 0) between neighbours, zero_crossing_rate.go:42-48)."""
+    nonneg = frames >= 0
+    changes = nonneg[..., 1:] != nonneg[..., :-1]
+    return torch.sum(changes, dim=-1).to(torch.float32)
+
+
+def zcr(frames: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """Crossings per second (zero_crossing_rate.go:37-53)."""
+    return zero_crossings(frames) / (frames.shape[-1] / float(sample_rate))
+
+
+def spectral_descriptor_bundle(magnitude: torch.Tensor, sample_rate: int) -> dict:
+    """Centroid, bandwidth, flatness, crest, slope and flux from shared
+    passes over [..., T, F] magnitudes, with the same expressions and
+    masks as the JAX bundle (`skip_rolloff=True`: the main path takes
+    rolloff from the K1 kernel's epilogue)."""
+    from sonido_sonar_tpu_torch.ops.stft import spectral_flux
+
+    m = magnitude
+    n_bins = m.shape[-1]
+    freqs = device_table(_freq_bins, (n_bins, sample_rate), m.device)
+    power = m * m
+
+    m_sum = torch.sum(m, dim=-1)
+    fm_sum = torch.sum(m * freqs, dim=-1)
+    m_max = torch.amax(m, dim=-1)
+    p_sum = torch.sum(power, dim=-1)
+    log_m = torch.log(torch.clamp_min(m, _EPS))
+    # flatness: geometric mean over bins above the threshold only
+    valid_f = m > _EPS
+    count_f = torch.sum(valid_f, dim=-1)
+    log_sum = torch.sum(torch.where(valid_f, log_m, 0.0), dim=-1)
+    # slope: log-log regression masked to mag > eps and f > 0
+    logf = torch.where(freqs > 0, torch.log10(torch.clamp_min(freqs, _EPS)), 0.0)
+    valid_s = valid_f & (freqs > 0)
+    y = torch.where(valid_s, log_m * _INV_LN10, 0.0)
+    n_s = torch.sum(valid_s, dim=-1).to(torch.float32)
+    sum_x = torch.sum(torch.where(valid_s, logf, 0.0), dim=-1)
+    sum_y = torch.sum(y, dim=-1)
+    sum_xy = torch.sum(y * logf, dim=-1)
+    sum_xx = torch.sum(torch.where(valid_s, logf * logf, 0.0), dim=-1)
+
+    centroid = torch.where(m_sum > 0, fm_sum / torch.clamp_min(m_sum, _EPS), 0.0)
+    arith = m_sum / n_bins
+    geo = torch.exp(log_sum / torch.clamp_min(count_f, 1))
+    flatness = torch.where(
+        (count_f > 0) & (arith > _EPS), geo / torch.clamp_min(arith, _EPS), 0.0
+    )
+    rms = torch.sqrt(p_sum / n_bins)
+    crest = torch.where(rms > 0, m_max / torch.clamp_min(rms, _EPS), 0.0)
+    den_s = n_s * sum_xx - sum_x * sum_x
+    den_ok = torch.abs(den_s) > _EPS
+    slope = torch.where(
+        (n_s >= 2) & den_ok,
+        (n_s * sum_xy - sum_x * sum_y) / torch.where(den_ok, den_s, 1.0),
+        0.0,
+    )
+
+    diff = freqs - centroid[..., None]
+    bw_num = torch.sum(diff * diff * m, dim=-1)
+    bandwidth = torch.where(
+        m_sum > 0, torch.sqrt(bw_num / torch.clamp_min(m_sum, _EPS)), 0.0
+    )
+
+    return {
+        "spectral_centroid": centroid,
+        "spectral_bandwidth": bandwidth,
+        "spectral_flatness": flatness,
+        "spectral_crest": crest,
+        "spectral_slope": slope,
+        "spectral_flux": spectral_flux(m),
+    }

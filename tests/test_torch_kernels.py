@@ -1,0 +1,196 @@
+"""The port's K1 (STFT + aux) and K2 (YIN) modules held to the JAX
+package on the CPU.
+
+On a CPU tensor each wrapper runs its plain PyTorch version; these tests
+hold that version to both of the JAX package's paths: the Pallas kernel
+in interpret mode (as tests/test_pallas_stft.py and test_pallas_yin.py
+run it) and the XLA path JAX takes on the CPU. The CUDA kernels
+themselves are held to the plain versions on the card by chip_smoke.py.
+Tolerances are those of sonido_sonar_tpu_torch/utils/parity.py, where
+each has its reason.
+"""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from sonido_sonar_tpu.ops import framing as jframing  # noqa: E402
+from sonido_sonar_tpu.ops import pitch as jpitch  # noqa: E402
+from sonido_sonar_tpu.ops import spectral as jspectral  # noqa: E402
+from sonido_sonar_tpu.ops.filters import pre_emphasis as j_pre_emphasis  # noqa: E402
+from sonido_sonar_tpu.ops.pallas_stft import stft_magnitude_pallas  # noqa: E402
+from sonido_sonar_tpu.ops.pallas_yin import yin_pitch_pallas  # noqa: E402
+from sonido_sonar_tpu.ops.stft import stft as j_stft  # noqa: E402
+from sonido_sonar_tpu_torch import _build  # noqa: E402
+from sonido_sonar_tpu_torch.ops import framing as tframing  # noqa: E402
+from sonido_sonar_tpu_torch.ops import hopper_stft, hopper_yin  # noqa: E402
+from sonido_sonar_tpu_torch.ops import pitch as tpitch  # noqa: E402
+from sonido_sonar_tpu_torch.utils import parity  # noqa: E402
+
+torch.set_num_threads(1)
+SR = 44100
+PRE = 0.97
+
+
+def _pcm(batch, seconds, seed):
+    return parity.synth_pcm(batch, int(seconds * SR), seed, SR).numpy()
+
+
+def _t(x):
+    return {k: np.asarray(v) for k, v in x.items()}
+
+
+@pytest.mark.parametrize("batch,seconds,seed", [(2, 1.0, 0), (3, 4.0, 1)])
+def test_k1_plain_matches_pallas_interpret(batch, seconds, seed):
+    """4 s rows give the interpret-mode kernel several 256-frame tiles,
+    so its pre-emphasis crosses tile boundaries."""
+    x = _pcm(batch, seconds, seed)
+    mag, aux = hopper_stft.stft_magnitude_hopper(torch.from_numpy(x), 1024, 256, pre_emph=PRE)
+    jmag, jaux = stft_magnitude_pallas(
+        jnp.asarray(x), 1024, 256, interpret=True, with_aux=True, pre_emph=PRE
+    )
+    near = parity.near_zero_frames(x, 1024, 256, PRE)
+    errors, failures = parity.check_stft_aux(
+        mag.numpy(), _t(aux), np.asarray(jmag), _t(jaux), near
+    )
+    assert not failures, (failures, errors)
+
+
+def test_k1_plain_matches_xla_path():
+    """JAX on the CPU: pre_emphasis -> stft -> frame RMS / zero crossings,
+    rolloff from the descriptor bundle's cumsum, band ratios from the
+    power sums (parallel/pipeline.py:124-187)."""
+    x = _pcm(4, 1.5, 2)
+    xj = j_pre_emphasis(jnp.asarray(x), PRE)
+    jmag = j_stft(xj, 1024, 256, sample_rate=SR).magnitude
+    frames = jframing.frame_signal(xj, 1024, 256)
+    power = np.asarray(jmag) ** 2
+    tot = power.sum(-1)
+    split = power.shape[-1] // 4
+    roll_hz = np.asarray(jspectral.spectral_descriptor_bundle(jmag, SR)["spectral_rolloff"])
+    ref_aux = {
+        "rms": np.asarray(jnp.sqrt(jnp.mean(frames * frames, axis=-1))),
+        "zero_crossings": np.asarray(jspectral.zero_crossings(frames)),
+        "rolloff_bin": roll_hz / ((SR / 2.0) / (power.shape[-1] - 1)),
+        "low_energy_ratio": np.where(tot > 0, power[..., :split].sum(-1) / np.maximum(tot, 1e-10), 0.0),
+        "high_energy_ratio": np.where(tot > 0, power[..., split:].sum(-1) / np.maximum(tot, 1e-10), 0.0),
+    }
+    mag, aux = hopper_stft.stft_magnitude_hopper(torch.from_numpy(x), 1024, 256, pre_emph=PRE)
+    near = parity.near_zero_frames(x, 1024, 256, PRE)
+    errors, failures = parity.check_stft_aux(mag.numpy(), _t(aux), np.asarray(jmag), ref_aux, near)
+    assert not failures, (failures, errors)
+
+
+@pytest.mark.parametrize("batch,seconds,seed", [(2, 1.0, 3), (3, 4.0, 4)])
+def test_k2_plain_matches_pallas_interpret(batch, seconds, seed):
+    """4 s rows give the interpret-mode kernel several 64-frame tiles."""
+    x = _pcm(batch, seconds, seed)
+    p, c, v = hopper_yin.yin_pitch_hopper(torch.from_numpy(x), 1024, 512, SR, 80.0, 1000.0, pre_emph=PRE)
+    jp, jc, _ = yin_pitch_pallas(jnp.asarray(x), 1024, 512, SR, 80.0, 1000.0, interpret=True, pre_emph=PRE)
+    errors, failures = parity.check_pitch(p.numpy(), c.numpy(), np.asarray(jp), np.asarray(jc))
+    assert not failures, (failures, errors)
+    assert errors["voiced_share"] > 0.5  # the tonal rows are voiced
+    assert torch.equal(v, c)
+
+
+def test_k2_plain_matches_xla_path():
+    x = _pcm(4, 1.5, 5)
+    params = jpitch.PitchParams(sample_rate=SR, window_size=1024)
+    jp, jc, jv = jpitch.yin_pitch_from_signal(jnp.asarray(x), 1024, 512, params, pre_emph=PRE)
+    tparams = tpitch.PitchParams(sample_rate=SR, window_size=1024)
+    p, c, v = tpitch.yin_pitch_from_signal(torch.from_numpy(x), 1024, 512, tparams, pre_emph=PRE)
+    errors, failures = parity.check_pitch(p.numpy(), c.numpy(), np.asarray(jp), np.asarray(jc))
+    assert not failures, (failures, errors)
+    assert errors["voiced_share"] > 0.5
+
+
+@pytest.mark.parametrize("w,hop", [(1024, 512), (512, 128)])
+def test_yin_difference_and_pick(w, hop):
+    """d(tau) = E1 + S - 2r: same formulation in both packages; atol
+    2e-4 of the largest d, as tests/test_pallas_yin.py. Over the same
+    rows the pick makes the same decisions; the CMNDF running sums round
+    in another order, so pitch and confidence agree to float32 rounding
+    (rtol 1e-6, atol 1e-6)."""
+    x = _pcm(2, 0.5, 6)
+    jframes = jframing.frame_signal(jnp.asarray(x), w, hop)
+    tframes = tframing.frame_signal(torch.from_numpy(x), w, hop)
+    jd = np.asarray(jpitch._yin_difference(jframes))
+    td = tpitch._yin_difference(tframes)
+    np.testing.assert_allclose(td.numpy(), jd, atol=2e-4 * np.abs(jd).max())
+    params = (SR, w, 80.0, 1000.0, 0.15)
+    jp, jc, _ = jpitch._yin_pick(jnp.asarray(jd), jpitch.PitchParams(*params))
+    tp, tc, _ = tpitch._yin_pick(torch.from_numpy(jd.copy()), tpitch.PitchParams(*params))
+    np.testing.assert_array_equal(tp.numpy() > 0, np.asarray(jp) > 0)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=0, atol=1e-6)
+
+
+def test_wrappers_take_plain_version_on_cpu_without_launching():
+    x = torch.from_numpy(_pcm(2, 0.5, 7))
+    k1_before = hopper_stft.stft_magnitude_hopper.launches
+    k2_before = hopper_yin.yin_pitch_hopper.launches
+    mag, aux = hopper_stft.stft_magnitude_hopper(x, 1024, 256, pre_emph=PRE)
+    pmag, paux = hopper_stft.stft_magnitude_plain(x, 1024, 256, pre_emph=PRE)
+    assert torch.equal(mag, pmag)
+    assert list(aux) == list(hopper_stft.AUX_KEYS)
+    assert all(torch.equal(aux[k], paux[k]) for k in aux)
+    got = hopper_yin.yin_pitch_hopper(x, 1024, 512, SR, 80.0, 1000.0, pre_emph=PRE)
+    ref = hopper_yin.yin_pitch_plain(x, 1024, 512, SR, 80.0, 1000.0, pre_emph=PRE)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert hopper_stft.stft_magnitude_hopper.launches == k1_before
+    assert hopper_yin.yin_pitch_hopper.launches == k2_before
+    # [N] input gives [T, ...] outputs
+    mag1, aux1 = hopper_stft.stft_magnitude_hopper(x[0], 1024, 256, pre_emph=PRE)
+    assert torch.equal(mag1, mag[0]) and aux1["rms"].shape == (mag.shape[1],)
+
+
+def test_wrappers_raise_on_devices_without_a_kernel():
+    x = torch.empty((2, 4096), device="meta")
+    with pytest.raises(ValueError, match="no K1 kernel"):
+        hopper_stft.stft_magnitude_hopper(x, 1024, 256)
+    with pytest.raises(ValueError, match="no K2 kernel"):
+        hopper_yin.yin_pitch_hopper(x, 1024, 512, SR, 80.0, 1000.0)
+
+
+@pytest.mark.parametrize(
+    "make,msg",
+    [
+        (lambda: torch.zeros(2, 4096, dtype=torch.float64), "float32"),
+        (lambda: torch.zeros(2, 2, 4096), r"\[N\] or \[B, N\]"),
+        (lambda: torch.zeros(4096, 2).T, "contiguous"),
+        (lambda: torch.zeros(2, 1000), "no frame"),
+        (lambda: torch.zeros(70000, 1024), "launch grid"),
+    ],
+)
+def test_kernel_signal_rejects_what_the_kernels_do_not_take(make, msg):
+    with pytest.raises(ValueError, match=msg):
+        tframing.kernel_signal(make(), 1024, 256)
+
+
+def test_kernel_signal_views_rows():
+    sig, b, t = tframing.kernel_signal(torch.zeros(44100), 1024, 256)
+    assert sig.shape == (1, 44100) and (b, t) == (1, 169)
+    sig, b, t = tframing.kernel_signal(torch.zeros(3, 2048), 1024, 512)
+    assert (b, t) == (3, 3)
+
+
+def test_build_command_targets_hopper(tmp_path, monkeypatch):
+    """nvcc by hand for sm_90a into a shared library with a C interface;
+    the library name follows the sources, and nvcc comes from CUDA_HOME."""
+    cmd = _build.nvcc_command("nvcc", tmp_path / "lib.so")
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert {"-shared", "-fPIC", "-O3", "-std=c++17"} <= set(cmd)
+    assert [c for c in cmd if c.endswith(".cu")] == [
+        str(_build._PKG / s) for s in _build.SOURCES
+    ]
+    assert all((_build._PKG / s).is_file() for s in _build.SOURCES)
+    assert len(_build.source_hash()) == 16 and _build.source_hash() == _build.source_hash()
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    assert _build.find_nvcc() == str(nvcc)
