@@ -19,11 +19,36 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
      counts, step time and audio-hours per wall-hour
   7. the main path at [2, 44100] on the card against the CPU
   8. K1 and K2 against their plain versions, timed at the main path's shapes
+  9. K2 with the period amplitude (voice quality: 1024/256, 50-500 Hz, on
+     speech-pre-emphasized PCM) against its plain version, B=4 x 5 s and
+     B=128 x 30 s: pitch gates as phase 5, the amplitude by the share of
+     frames off (utils/parity.check_period_amp)
+ 10. K4 (onset thinning) against its plain version, bit for bit: the
+     three thinning shapes of the music step at 30 s, random candidates at
+     5 % and 30 % and the real flux candidates, min_frames 8 and 4;
+     [3, 777] and a [2, 3, T] input
+ 11. the wrappers on [2, 3, N] equal the same rows as [6, N] (K1, K2, K2
+     with amplitude)
+ 12. the public path at full width: FingerprintGenerator (44.1 kHz,
+     1024/256) on B=128 x 30 s news-labelled harmonic clips,
+     generate_fingerprints_batch(pcm_matrix=..., materialize=False) then
+     materialize(): launch counts (K1 >= 1, K2 >= 2 with one period-
+     amplitude launch), the schema's shapes and dtypes, finite values,
+     step time and audio-hours per wall-hour; then one batch without
+     metadata (the acoustic detector routes; logged, not gated)
+ 13. the music program (batched_music_extractor_features) at B=128 x 30 s:
+     K1 launched twice and K4 three times, shapes, finite values, step
+     time; batched_speech_extractor_features at the same shape
+ 14. the generator (both routings) and the music program at [2, 44100]
+     on the card against the CPU, with utils/parity's gates
+ 15. K2 with amplitude and K4 against their plain versions, timed
+ 16. one torch.profiler step each of the generator and the music paths:
+     the device's busy share and its top kernels
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Inputs are harmonic tones plus noise (utils/parity.synth_pcm), drawn
-with numpy from SEED.
+Inputs are harmonic tones plus noise (utils/parity.synth_pcm and
+utils/parity.harmonic_clips), drawn with numpy from SEED.
 """
 
 from __future__ import annotations
@@ -45,6 +70,8 @@ PRE_EMPH = 0.97
 FULL_B, FULL_SECONDS = 128, 30  # bench.py's headline shape
 SMALL_B, SMALL_SECONDS = 4, 5
 TIMED_STEPS = 5
+SURFACE_STEPS = 3  # timed steps of the generator and the music program
+VQ_ARGS = (1024, 256, SR, 50.0, 500.0, 0.15, 0.0)  # voice quality's K2 call
 OUTPUT_KEYS = (
     "mfcc", "chroma", "spectral_centroid", "spectral_bandwidth", "spectral_flatness",
     "spectral_crest", "spectral_slope", "spectral_flux", "spectral_contrast", "zcr",
@@ -89,6 +116,120 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed_steps(fn, steps: int) -> list:
+    """Host-clock seconds of `steps` synchronized calls of fn()."""
+    out = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def report_steps(what: str, step_s: list, audio_s: float, card: str) -> float:
+    ms = 1e3 * float(np.mean(step_s))
+    log(f"{what}: {ms:.2f} ms/step (steps {', '.join(f'{1e3 * s:.2f}' for s in step_s)}), "
+        f"{audio_s / float(np.mean(step_s)):.0f} audio-h per wall-h [{card}]")
+    return ms
+
+
+def profile_step(what: str, fn, top: int = 12) -> None:
+    """One torch.profiler step of fn(): the device's busy share (kernel
+    time over wall time) and the kernels with the most device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    log(f"[profile {what}] {1e3 * wall:.2f} ms wall (profiled), device busy "
+        f"{1e-3 * busy_us:.2f} ms = {100 * busy_us * 1e-6 / wall:.1f} %")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[profile {what}] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+
+
+def check_surface(what: str, arrays: dict, expect: dict, ints: dict) -> None:
+    """Every array finite, float32 unless `ints` names its dtype, and of
+    the shape `expect` gives where it names one."""
+    for key, v in arrays.items():
+        dtype = ints.get(key, torch.float32)
+        if v.dtype != dtype:
+            raise AssertionError(f"{what} {key}: {v.dtype}, expected {dtype}")
+        if key in expect and tuple(v.shape) != expect[key]:
+            raise AssertionError(f"{what} {key}: shape {tuple(v.shape)}, expected {expect[key]}")
+        if v.dtype.is_floating_point and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{what} {key}: non-finite values")
+    missing = sorted(set(expect) - set(arrays))
+    if missing:
+        raise AssertionError(f"{what}: missing {missing}")
+    log(f"[{what}] {len(arrays)} outputs: shapes and dtypes as expected, all finite")
+
+
+def news_schema(b: int, n: int) -> dict:
+    """The ExtractedFeatures fields of the speech extractor with every
+    stage on (news), at 1024/256, as features_to_numpy paths -> shapes."""
+    t = (n - WINDOW) // HOP + 1
+    tp = (n - 1024) // 512 + 1
+    frame = {k: (b, t) for k in (
+        "spectral_features.spectral_centroid", "spectral_features.spectral_rolloff",
+        "spectral_features.spectral_bandwidth", "spectral_features.spectral_flatness",
+        "spectral_features.spectral_crest", "spectral_features.spectral_slope",
+        "spectral_features.spectral_flux", "spectral_features.zero_crossing_rate",
+        "temporal_features.rms_energy", "energy_features.short_time_energy",
+        "energy_features.energy_entropy", "energy_features.low_energy_ratio",
+        "energy_features.high_energy_ratio")}
+    pitch = {f"harmonic_features.{k}": (b, tp) for k in (
+        "pitch_estimate", "pitch_confidence", "voicing_strength", "harmonic_ratio",
+        "inharmonicity_ratio", "tonal_centroid")}
+    scalar = {k: (b,) for k in (
+        "speech_features.vocal_tract_length", "speech_features.speech_rate",
+        "speech_features.pause_count", "speech_features.formant_count",
+        "speech_features.jitter", "speech_features.shimmer",
+        "temporal_features.peak_amplitude", "temporal_features.average_amplitude",
+        "temporal_features.dynamic_range", "temporal_features.silence_ratio",
+        "temporal_features.onset_density", "energy_features.energy_variance",
+        "energy_features.loudness_range")}
+    return {
+        **frame, **pitch, **scalar,
+        "mfcc": (b, t, 13), "spectral_features.spectral_contrast": (b, t, 6),
+        "speech_features.formant_frequencies": (b, 1, 4),
+        "speech_features.voicing_probability": (b, tp),
+        "speech_features.spectral_tilt": (b, tp),
+        "speech_features.pause_duration": (b, 64),
+        "temporal_features.onset_mask": (b, t - 1),
+        "temporal_features.attack_time": (b, t - 1),
+        "temporal_features.envelope_shape": (b, (n - 512) // 256 + 1),
+    }
+
+
+NEWS_INTS = {"speech_features.formant_count": torch.int32,
+             "speech_features.pause_count": torch.int32,
+             "temporal_features.onset_mask": torch.bool}
+
+
+def music_schema(b: int, n: int) -> dict:
+    t = (n - WINDOW) // HOP + 1
+    per_frame = ("spectral_centroid", "spectral_bandwidth", "spectral_flatness", "spectral_crest",
+                 "spectral_slope", "spectral_flux", "spectral_rolloff", "zcr", "chord_index",
+                 "chord_score", "rms_energy", "onset_mask", "attack_time", "crest_factor",
+                 "energy_entropy", "low_energy_ratio", "high_energy_ratio", "pitch",
+                 "pitch_confidence", "voicing", "hnr", "inharmonicity", "tonal_centroid")
+    scalar = ("onset_density", "peak_amplitude", "average_amplitude", "dynamic_range",
+              "silence_ratio", "tempo_bpm", "energy_variance", "loudness_range")
+    env_frame = max(n // t, 1)
+    return {**{k: (b, t) for k in per_frame}, **{k: (b,) for k in scalar},
+            "spectral_contrast": (b, t, 6), "mfcc": (b, t, 13), "chroma": (b, t, 12),
+            "key_correlations": (b, 24), "envelope_shape": (b, (n - env_frame) // HOP + 1)}
+
+
+MUSIC_INTS = {"chord_index": torch.int32, "onset_mask": torch.bool}
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     card = card_line()                                        # phase 1
@@ -103,9 +244,34 @@ def main() -> int:
     if Path(port.__file__).resolve().parent.parent != here:
         raise SystemExit(f"chip_smoke: imported the port from {port.__file__}, not {here}")
     from sonido_sonar_tpu_torch import _build
-    from sonido_sonar_tpu_torch.ops import hopper_stft, hopper_yin
-    from sonido_sonar_tpu_torch.parallel.pipeline import batched_fingerprint_features
+    from sonido_sonar_tpu_torch.config.config import FeatureConfig, FingerprintConfig
+    from sonido_sonar_tpu_torch.fingerprint import FingerprintGenerator
+    from sonido_sonar_tpu_torch.io.audio import AudioData, AudioMetadata
+    from sonido_sonar_tpu_torch.ops import hopper_onsets, hopper_stft, hopper_yin
+    from sonido_sonar_tpu_torch.ops import temporal as T
+    from sonido_sonar_tpu_torch.ops.filters import dc_removal, pre_emphasis_for_content
+    from sonido_sonar_tpu_torch.ops.stft import spectral_flux
+    from sonido_sonar_tpu_torch.parallel.pipeline import (
+        batched_fingerprint_features,
+        batched_music_extractor_features,
+        batched_speech_extractor_features,
+    )
     from sonido_sonar_tpu_torch.utils import parity
+    from sonido_sonar_tpu_torch.ops.tonal import CHORD_MATRIX
+    from sonido_sonar_tpu_torch.utils.convert import features_to_numpy, flatten_features
+
+    def near_zero_for(x, music: bool):
+        """Frames exempt from the exact ZCR comparison (utils/parity): a
+        sample near 0 after the path's preprocessing, from CPU PCM."""
+        if music:
+            pre = pre_emphasis_for_content(dc_removal(x), "music").numpy()
+            return parity.near_zero_frames(pre, WINDOW, HOP, 0.0, parity.DC_NEAR_ZERO)
+        return parity.near_zero_frames(x.numpy(), WINDOW, HOP, 0.97)
+
+    def chord_margin(chroma):
+        cn = chroma / np.maximum(np.linalg.norm(chroma, axis=-1, keepdims=True), 1e-10)
+        sims = np.sort(cn @ CHORD_MATRIX.T, axis=-1)
+        return sims[..., -1] - sims[..., -2]
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -228,6 +394,186 @@ def main() -> int:
             f"plain {p1:.3f} / {p2:.3f} ms [{card}]")
         torch.cuda.empty_cache()
 
+    k4 = hopper_onsets.thin_onsets_hopper
+    k4_plain = hopper_onsets.thin_onsets_plain
+    n_full = FULL_SECONDS * SR
+
+    def hold_k2_amp(x):                                       # phase 9
+        p, c, v, a = k2(x, *VQ_ARGS, with_period_amp=True)
+        pp, pc, _, pa = k2_plain(x, *VQ_ARGS, with_period_amp=True)
+        torch.cuda.synchronize()
+        what = f"K2 with period amplitude vs plain, {tuple(x.shape)}"
+        errors = require(parity.check_pitch(np32(p), np32(c), np32(pp), np32(pc)), what)
+        errors.update(require(parity.check_period_amp(np32(a), np32(pa)), what + ", amplitude"))
+        both = (np32(p) > 0) & (np32(pp) > 0)
+        errors["amp_max_abs"] = float(np.abs(np32(a) - np32(pa))[both].max(initial=0.0))
+        if not torch.equal(v, c):
+            raise AssertionError("K2: voicing is not the confidence")
+        return errors
+
+    small_sp = pre_emphasis_for_content(small, "speech").contiguous()
+    full_sp = pre_emphasis_for_content(full, "speech").contiguous()
+    hold_k2_amp(small_sp)
+    errs["K2amp", "full"] = hold_k2_amp(full_sp)
+    torch.cuda.empty_cache()
+
+    def hold_k4(cand, min_frames, what):                      # phase 10
+        got, ref = k4(cand, min_frames), k4_plain(cand, min_frames)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bool or got.shape != cand.shape or not torch.equal(got, ref):
+            bad = int((got != ref).sum()) if got.shape == ref.shape else -1
+            raise AssertionError(f"K4 vs plain, {what}: {bad} elements differ")
+        return int(got.sum())
+
+    rng = np.random.default_rng(SEED + 4)
+    t_flux = (n_full - WINDOW) // HOP + 1       # flux onsets at hop 256
+    t_energy = (n_full - 512) // 256 + 1        # tempo's energy onsets, 512/256
+    t_tempo = (n_full - 1024) // 512 + 1        # tempo's flux onsets, hop 512
+    k4_checked = 0
+    # the three calls' T, and T one frame longer (5165 and 5167)
+    for t in sorted({t_flux, t_energy, t_tempo, t_flux + 1, t_energy + 1}):
+        for density in (0.05, 0.3):
+            cand = torch.from_numpy(rng.random((FULL_B, t)) < density).to(dev)
+            for mf in (8, 4):
+                kept = hold_k4(cand, mf, f"[{FULL_B}, {t}] at {density}, min_frames {mf}")
+                k4_checked += 1
+    mag_m, _ = k1(full, WINDOW, HOP)
+    real = T.flux_onset_candidates(spectral_flux(mag_m), 0.3).contiguous()
+    del mag_m
+    kept = hold_k4(real, 8, f"the music path's flux candidates {tuple(real.shape)}")
+    odd_c = torch.from_numpy(rng.random((3, 777)) < 0.3).to(dev)
+    hold_k4(odd_c, 1, "[3, 777]")
+    hold_k4(torch.from_numpy(rng.random((2, 3, t_tempo)) < 0.3).to(dev), 4, "[2, 3, T]")
+    log(f"[K4 vs plain] bit-identical on {k4_checked + 3} inputs; the real flux candidates "
+        f"{int(real.sum())} -> {kept} kept")
+
+    six = parity.synth_pcm(6, SR + 777, SEED + 5, SR, dev)    # phase 11
+    m6, a6 = k1(six, WINDOW, HOP, pre_emph=PRE_EMPH)
+    m23, a23 = k1(six.view(2, 3, -1), WINDOW, HOP, pre_emph=PRE_EMPH)
+    same = torch.equal(m23.reshape(m6.shape), m6) and all(
+        torch.equal(a23[k].reshape(a6[k].shape), a6[k]) for k in a6)
+    for amp in (False, True):
+        y6 = k2(six, *VQ_ARGS, with_period_amp=amp)
+        y23 = k2(six.view(2, 3, -1), *VQ_ARGS, with_period_amp=amp)
+        same = same and all(torch.equal(q.reshape(r.shape), r) for q, r in zip(y23, y6))
+    if not same or m23.shape[:2] != (2, 3):
+        raise AssertionError("[2, 3, N] through K1/K2 differs from the same rows as [6, N]")
+    log("[K1, K2 on [2, 3, N]] equal to the same rows as [6, N]")
+    del six, m6, a6, m23, a23, small_sp
+    torch.cuda.empty_cache()
+
+    # phase 12: the public generator path at full width
+    gen_cfg = FingerprintConfig(feature_config=FeatureConfig(sample_rate=SR, window_size=WINDOW,
+                                                             hop_size=HOP))
+    clips = parity.harmonic_clips(FULL_B, n_full, SEED + 6, SR, 196.0, dev)
+    news = [AudioData(pcm=clips[i], sample_rate=SR,
+                      metadata=AudioMetadata(extra={"content_type": "news"}))
+            for i in range(FULL_B)]
+    gen = FingerprintGenerator(gen_cfg)
+
+    def gen_step():
+        return gen.generate_fingerprints_batch(news, pcm_matrix=clips, materialize=False)
+
+    k1.launches = k2.launches = k2.amp_launches = 0
+    batch = gen_step()
+    torch.cuda.synchronize()
+    gen_launches = {"K1": k1.launches, "K2": k2.launches, "K2amp": k2.amp_launches}
+    log(f"generator (news) launches: {gen_launches}")
+    if gen_launches["K1"] < 1 or gen_launches["K2"] < 2 or gen_launches["K2amp"] < 1:
+        raise AssertionError(f"the generator path missed a kernel: {gen_launches}")
+    (ct, idxs, feats), = batch.groups
+    if ct.value != "news" or len(idxs) != FULL_B:
+        raise AssertionError(f"generator grouped {ct} x {len(idxs)}")
+    check_surface("generator news", flatten_features(feats), news_schema(FULL_B, n_full), NEWS_INTS)
+    fps = batch.materialize()
+    one = features_to_numpy(fps[-1].features)
+    for k, shape in news_schema(FULL_B, n_full).items():
+        if one[k].shape != shape[1:]:
+            raise AssertionError(f"materialized {k}: {one[k].shape}, expected {shape[1:]}")
+    log(f"[generator news] materialized {len(fps)} fingerprints of the schema's shapes")
+    del batch, fps, feats
+    gen_ms = report_steps(f"generator news B={FULL_B} x {FULL_SECONDS} s", timed_steps(gen_step, SURFACE_STEPS),
+                          FULL_B * FULL_SECONDS, card)
+    clips2 = parity.harmonic_clips(FULL_B, n_full, SEED + 7, SR, 220.0, dev)
+    plain_audios = [AudioData(pcm=clips2[i], sample_rate=SR) for i in range(FULL_B)]
+    k1.launches = k2.launches = k2.amp_launches = k4.launches = 0
+    fps2 = gen.generate_fingerprints_batch(plain_audios, pcm_matrix=clips2)
+    torch.cuda.synchronize()
+    types = sorted({f.content_type.value for f in fps2})
+    log(f"[generator, no metadata] detected {types}; launches K1 {k1.launches}, K2 {k2.launches} "
+        f"(period amplitude {k2.amp_launches}), K4 {k4.launches} (a speculation on the last "
+        f"batch's type that detection overrules runs a second extractor)")
+    del fps2, clips2, plain_audios
+    torch.cuda.empty_cache()
+
+    def music_step():                                         # phase 13
+        return batched_music_extractor_features(clips, SR, WINDOW, HOP)
+
+    k1.launches = k4.launches = 0
+    mus = music_step()
+    torch.cuda.synchronize()
+    music_launches = {"K1": k1.launches, "K4": k4.launches}
+    log(f"music program launches: {music_launches}")
+    if music_launches != {"K1": 2, "K4": 3}:
+        raise AssertionError(f"the music path launched {music_launches}, expected K1 2, K4 3")
+    check_surface("music program", mus, music_schema(FULL_B, n_full), MUSIC_INTS)
+    log(f"[music program] onsets per clip {float(mus['onset_mask'].sum(-1).float().mean()):.1f}, "
+        f"tempo {sorted(set(mus['tempo_bpm'].tolist()))}")
+    del mus
+    music_ms = report_steps(f"music program B={FULL_B} x {FULL_SECONDS} s",
+                            timed_steps(music_step, SURFACE_STEPS), FULL_B * FULL_SECONDS, card)
+    k1.launches = k2.launches = k2.amp_launches = 0
+    sp = batched_speech_extractor_features(clips, SR, WINDOW, HOP)
+    torch.cuda.synchronize()
+    log(f"speech extractor launches: K1 {k1.launches}, K2 {k2.launches} "
+        f"(period amplitude {k2.amp_launches})")
+    check_surface("speech extractor", sp, {"pitch": (FULL_B, (n_full - 1024) // 512 + 1)},
+                  {"formant_count": torch.int32, "pause_count": torch.int32, "is_speech": torch.bool})
+    del sp
+    report_steps(f"speech extractor B={FULL_B} x {FULL_SECONDS} s",
+                 timed_steps(lambda: batched_speech_extractor_features(clips, SR, WINDOW, HOP),
+                             SURFACE_STEPS), FULL_B * FULL_SECONDS, card)
+    torch.cuda.empty_cache()
+
+    small_clips = torch.cat([parity.harmonic_clips(1, SR, SEED + 8), parity.voiced_pcm(1, SR, SEED + 9)])
+    for label, strict in (("news", True), ("music", False)):  # phase 14
+        audios = [AudioData(pcm=small_clips[i], sample_rate=SR,
+                            metadata=AudioMetadata(extra={"content_type": label})) for i in range(2)]
+        g = FingerprintGenerator(gen_cfg, strict_reference_routing=strict)
+        on_card = g.generate_fingerprints_batch(audios, pcm_matrix=small_clips.to(dev))
+        on_cpu = g.generate_fingerprints_batch(audios, pcm_matrix=small_clips)
+        for i, (fc, fh) in enumerate(zip(on_card, on_cpu)):
+            near = near_zero_for(small_clips[i], label == "music")
+            require(parity.check_extracted(features_to_numpy(fc.features), features_to_numpy(fh.features),
+                                           SR, WINDOW, near_zero=near, n_samples=SR),
+                    f"generator {label} (strict={strict}) [2, {SR}] row {i}, card vs CPU")
+    mus_card = {k: np32(v) for k, v in batched_music_extractor_features(small_clips.to(dev)).items()}
+    mus_cpu = {k: v.numpy() for k, v in batched_music_extractor_features(small_clips).items()}
+    require(parity.check_extracted(mus_card, mus_cpu, SR, WINDOW, near_zero=near_zero_for(small_clips, True),
+                                   n_samples=SR, chord_margin=chord_margin(mus_cpu["chroma"])),
+            f"music program [2, {SR}], card vs CPU")
+
+    for name, kern, plain, x, kw in (                         # phase 15
+        ("K2amp", k2, k2_plain, full_sp, dict(with_period_amp=True)),
+        ("K4", k4, k4_plain, real, {}),
+    ):
+        args = VQ_ARGS if name == "K2amp" else (8,)
+        kern(x, *args, **kw), plain(x, *args, **kw)  # warm-up
+        p1 = cuda_ms(lambda: plain(x, *args, **kw), 3)
+        q1 = cuda_ms(lambda: kern(x, *args, **kw), 10)
+        q2 = cuda_ms(lambda: kern(x, *args, **kw), 10)
+        p2 = cuda_ms(lambda: plain(x, *args, **kw), 3)
+        times[name] = ((q1 + q2) / 2, (p1 + p2) / 2)
+        log(f"{name} at {tuple(x.shape)}: kernel {q1:.4f} / {q2:.4f} ms, "
+            f"plain {p1:.3f} / {p2:.3f} ms [{card}]")
+        torch.cuda.empty_cache()
+    del full_sp
+
+    profile_step("generator news", gen_step)                  # phase 16
+    profile_step("music program", music_step)
+    log(f"step times: main path {ms:.2f}, generator news {gen_ms:.2f}, "
+        f"music program {music_ms:.2f} ms [{card}]")
+
     for mod in ("jax", "sonido_sonar_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
@@ -242,6 +588,16 @@ def main() -> int:
          "replaces": "sonido_sonar_tpu/ops/pallas_yin.py:238",
          "launches": launches["K2"], "max_abs_err": errs["K2", "full"]["pitch_max_abs"],
          "ms": times["K2"][0], "plain_ms": times["K2"][1]},
+        {"name": "K2 yin_pitch with_period_amp", "route": "cuda",
+         "source": "sonido_sonar_tpu_torch/csrc/yin.cu",
+         "replaces": "sonido_sonar_tpu/ops/pallas_yin.py:356",
+         "launches": gen_launches["K2amp"], "max_abs_err": errs["K2amp", "full"]["amp_max_abs"],
+         "ms": times["K2amp"][0], "plain_ms": times["K2amp"][1]},
+        {"name": "K4 thin_onsets", "route": "cuda",
+         "source": "sonido_sonar_tpu_torch/csrc/onsets.cu",
+         "replaces": "sonido_sonar_tpu/ops/pallas_onsets.py:60",
+         "launches": music_launches["K4"], "max_abs_err": 0.0,
+         "ms": times["K4"][0], "plain_ms": times["K4"][1]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("csrc/stft.cu", "csrc/yin.cu")
+SOURCES = ("csrc/stft.cu", "csrc/yin.cu", "csrc/onsets.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,9 +42,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # sig, window, twiddle, mag, aux, batch, n, frames, window, hop, pre_emph, stream
     "sonido_stft_aux": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    # sig, pitch, conf, batch, n, frames, window, hop, pre_emph,
-    # sample_rate, min_freq, max_freq, threshold, stream
-    "sonido_yin_pitch": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
+    # sig, pitch, conf, amp (nullable), batch, n, frames, window, hop,
+    # pre_emph, sample_rate, min_freq, max_freq, threshold, stream
+    "sonido_yin_pitch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
+    # cand, kept, rows, frames, min_frames, stream
+    "sonido_thin_onsets": (_P, _P, _I, _I, _I, _P),
 }
 
 

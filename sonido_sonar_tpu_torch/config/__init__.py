@@ -6,4 +6,13 @@ from sonido_sonar_tpu_torch.config.config import (  # noqa: F401
     FeatureConfig,
     FingerprintConfig,
     WindowType,
+    alignment_config_for_content,
+    comparison_config_for_content,
+    content_feature_toggles,
+    default_alignment_config,
+    default_comparison_config,
+    default_fingerprint_config,
+    get_content_optimized_comparison_config,
+    to_content_type,
 )
+from sonido_sonar_tpu_torch.config.content_config import ContentAwareConfigManager  # noqa: F401

@@ -2,8 +2,7 @@
 (`sonido_sonar_tpu/config/config.py`): same names, same defaults.
 
 Reference parity: fingerprint/config/config.go:5-209 and
-fingerprint/fingerprint.go:70-134. The per-content factory functions
-belong to the fingerprint surface and are not part of this slice.
+fingerprint/fingerprint.go:70-134, with the per-content factories.
 """
 
 from __future__ import annotations
@@ -144,6 +143,116 @@ class FingerprintConfig:
     feature_config: FeatureConfig = field(default_factory=FeatureConfig)
     content_aware: ContentAwareConfig = field(default_factory=ContentAwareConfig)
     enable_hashing: bool = True
+
+
+def default_fingerprint_config() -> FingerprintConfig:
+    """fingerprint.go:70-98: window 2048 / hop 512 / weights
+    mfcc .40 spectral .25 chroma .20 temporal .15."""
+    return FingerprintConfig()
+
+
+def default_comparison_config() -> ComparisonConfig:
+    """config.go:120-128."""
+    return ComparisonConfig(
+        similarity_threshold=0.75,
+        method="auto",
+        max_candidates=50,
+        enable_detailed_metrics=False,
+        enable_content_filter=False,
+    )
+
+
+def default_alignment_config() -> AlignmentConfig:
+    """config.go:103-117."""
+    return AlignmentConfig()
+
+
+def get_content_optimized_comparison_config(
+    content_type: ContentType,
+) -> ComparisonConfig:
+    """config.go:131-155."""
+    cfg = default_comparison_config()
+    if content_type == ContentType.MUSIC:
+        cfg = replace(cfg, similarity_threshold=0.80, method="precise")
+    elif content_type in (ContentType.NEWS, ContentType.TALK):
+        cfg = replace(
+            cfg,
+            similarity_threshold=0.70,
+            enable_content_filter=False,
+            method="precise",
+        )
+    elif content_type == ContentType.SPORTS:
+        cfg = replace(cfg, similarity_threshold=0.75, method="auto")
+    elif content_type == ContentType.MIXED:
+        cfg = replace(
+            cfg,
+            similarity_threshold=0.72,
+            method="auto",
+            enable_detailed_metrics=True,
+        )
+    return replace(cfg, content_type=content_type)
+
+
+def alignment_config_for_content(content_type: ContentType) -> AlignmentConfig:
+    """config.go:160-181."""
+    cfg = default_alignment_config()
+    if content_type in (ContentType.NEWS, ContentType.TALK):
+        cfg = replace(cfg, min_confidence=0.5, preferred_method="dtw")
+    elif content_type == ContentType.MUSIC:
+        cfg = replace(cfg, min_confidence=0.7, preferred_method="hybrid")
+    elif content_type == ContentType.SPORTS:
+        cfg = replace(cfg, min_confidence=0.4)
+    elif content_type == ContentType.MIXED:
+        cfg = replace(cfg, min_confidence=0.5, preferred_method="hybrid")
+    return cfg
+
+
+def comparison_config_for_content(content_type: ContentType) -> ComparisonConfig:
+    """config.go:186-209."""
+    if content_type == ContentType.MUSIC:
+        return ComparisonConfig(
+            similarity_threshold=0.80, method="precise", content_type=content_type
+        )
+    if content_type in (ContentType.NEWS, ContentType.TALK):
+        return ComparisonConfig(
+            similarity_threshold=0.70, method="precise", content_type=content_type
+        )
+    if content_type == ContentType.SPORTS:
+        return ComparisonConfig(
+            similarity_threshold=0.75, method="auto", content_type=content_type
+        )
+    return ComparisonConfig(
+        similarity_threshold=0.75, method="auto", content_type=content_type
+    )
+
+
+def content_feature_toggles(content_type: ContentType) -> Dict[str, bool]:
+    """Per-content feature enable flags (fingerprint.go:100-134)."""
+    settings = {
+        ContentType.MUSIC: dict(
+            mfcc=True, chroma=True, contrast=True, harmonic=True,
+            speech=False, temporal=False,
+        ),
+        ContentType.NEWS: dict(
+            mfcc=True, chroma=False, contrast=True, harmonic=False,
+            speech=True, temporal=True,
+        ),
+        ContentType.TALK: dict(
+            mfcc=True, chroma=False, contrast=True, harmonic=False,
+            speech=True, temporal=True,
+        ),
+        ContentType.MIXED: dict(
+            mfcc=True, chroma=True, contrast=True, harmonic=True,
+            speech=True, temporal=True,
+        ),
+        ContentType.UNKNOWN: dict(
+            mfcc=True, chroma=True, contrast=True, harmonic=False,
+            speech=False, temporal=True,
+        ),
+    }
+    # Reference has no sports entry (content_config.go:106-278 quirk #9);
+    # sports falls through to UNKNOWN.
+    return settings.get(content_type, settings[ContentType.UNKNOWN])
 
 
 def asdict(cfg) -> dict:

@@ -4,11 +4,15 @@
 //
 // Replaces the TPU kernel yin_pitch_pallas in
 // sonido_sonar_tpu/ops/pallas_yin.py (:238, body :281, pallas_call
-// :370), without its period-amplitude option. Same contract: [B, N]
-// float32 PCM -> pitch, confidence [B, T] with T = (N - W)/hop + 1;
+// :370), with its period-amplitude option (:356-368). Same contract:
+// [B, N] float32 PCM -> pitch, confidence [B, T] with T = (N - W)/hop + 1;
 // H = W/2 lags; pre-emphasis y[n] = x[n] - a x[n-1] with x[-1] = 0 only
 // at the start of each row; voicing is the confidence (the wrapper
-// returns it twice).
+// returns it twice). With a non-null `amp` the kernel also writes the
+// RMS over the first pitch period of the (pre-emphasized) frame:
+// plen = clamp((int)(sr / max(pitch, eps)), 1, W - 1) for a voiced
+// frame, 1 otherwise; amp = sqrt(sum_{j<plen} x[j]^2 / plen). The frame
+// already sits in shared memory, so this is one block reduction more.
 //
 // What bounds it on an H100: the difference function. The TPU kernel
 // computed d(tau) = E1 + S(tau) - 2 r(tau) through three bf16x3 DFT
@@ -34,14 +38,15 @@ constexpr unsigned kFull = 0xffffffffu;
 template <int R>  // lags per thread: H = R * kThreads
 __global__ void __launch_bounds__(kThreads) yin_kernel(
     const float* __restrict__ sig, float* __restrict__ pitch, float* __restrict__ conf,
-    int n, int t_frames, int hop, float pre_emph, float sample_rate, float min_freq,
-    float max_freq, float threshold) {
+    float* __restrict__ amp, int n, int t_frames, int hop, float pre_emph,
+    float sample_rate, float min_freq, float max_freq, float threshold) {
   constexpr int H = R * kThreads;
   constexpr int W = 2 * H;
   __shared__ float s_x[W];
   __shared__ float s_cm[H];  // d, then the CMNDF
   __shared__ float s_warp[kWarps];
   __shared__ int s_first[kWarps];
+  __shared__ int s_plen;
 
   const int t = blockIdx.x, row = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -131,26 +136,48 @@ __global__ void __launch_bounds__(kThreads) yin_kernel(
     const float freq = sample_rate / fmaxf(period, kEps);
     const bool ok = has && freq >= min_freq && freq <= max_freq;
     const size_t o = (size_t)row * t_frames + t;
-    pitch[o] = ok ? freq : 0.f;
+    const float p = ok ? freq : 0.f;
+    pitch[o] = p;
     conf[o] = ok ? 1.f - y1 : 0.f;
+    // IEEE division and a truncating cast, as the plain version does them
+    const int plen = p > 0.f ? (int)__fdiv_rn(sample_rate, fmaxf(p, kEps)) : 0;
+    s_plen = min(max(plen, 1), W - 1);
+  }
+  if (amp == nullptr) return;  // uniform across the block
+  __syncthreads();
+
+  // period amplitude: block sum of s_x[j]^2 over j < plen
+  const int plen = s_plen;
+  float sq = 0.f;
+  for (int j = tid; j < plen; j += kThreads) sq = fmaf(s_x[j], s_x[j], sq);
+  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(kFull, sq, o);
+  if (lane == 0) s_warp[warp] = sq;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.f;
+    for (int wi = 0; wi < kWarps; ++wi) total += s_warp[wi];
+    amp[(size_t)row * t_frames + t] = sqrtf(__fdiv_rn(total, (float)plen));
   }
 }
 
 template <int R>
-cudaError_t launch(const float* sig, float* pitch, float* conf, int batch, int n,
+cudaError_t launch(const float* sig, float* pitch, float* conf, float* amp, int batch, int n,
                    int t_frames, int hop, float pre_emph, float sample_rate, float min_freq,
                    float max_freq, float threshold, cudaStream_t stream) {
   const dim3 grid(t_frames, batch);
-  yin_kernel<R><<<grid, kThreads, 0, stream>>>(sig, pitch, conf, n, t_frames, hop, pre_emph,
-                                               sample_rate, min_freq, max_freq, threshold);
+  yin_kernel<R><<<grid, kThreads, 0, stream>>>(sig, pitch, conf, amp, n, t_frames, hop,
+                                               pre_emph, sample_rate, min_freq, max_freq,
+                                               threshold);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch K2 on `stream`. Window must be 256, 512, 1024 or 2048; returns
-// the CUDA error code (0 on success).
-extern "C" int sonido_yin_pitch(const float* sig, float* pitch, float* conf, int batch, int n,
+// Launch K2 on `stream`. Window must be 256, 512, 1024 or 2048; `amp`
+// may be null (no period amplitude). Returns the CUDA error code (0 on
+// success).
+extern "C" int sonido_yin_pitch(const float* sig, float* pitch, float* conf, float* amp,
+                                int batch, int n,
                                 int t_frames, int w, int hop, float pre_emph,
                                 float sample_rate, float min_freq, float max_freq,
                                 float threshold, void* stream) {
@@ -158,10 +185,10 @@ extern "C" int sonido_yin_pitch(const float* sig, float* pitch, float* conf, int
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (w) {
-    case 256: err = launch<1>(sig, pitch, conf, batch, n, t_frames, hop, pre_emph, sample_rate, min_freq, max_freq, threshold, s); break;
-    case 512: err = launch<2>(sig, pitch, conf, batch, n, t_frames, hop, pre_emph, sample_rate, min_freq, max_freq, threshold, s); break;
-    case 1024: err = launch<4>(sig, pitch, conf, batch, n, t_frames, hop, pre_emph, sample_rate, min_freq, max_freq, threshold, s); break;
-    case 2048: err = launch<8>(sig, pitch, conf, batch, n, t_frames, hop, pre_emph, sample_rate, min_freq, max_freq, threshold, s); break;
+    case 256: err = launch<1>(sig, pitch, conf, amp, batch, n, t_frames, hop, pre_emph, sample_rate, min_freq, max_freq, threshold, s); break;
+    case 512: err = launch<2>(sig, pitch, conf, amp, batch, n, t_frames, hop, pre_emph, sample_rate, min_freq, max_freq, threshold, s); break;
+    case 1024: err = launch<4>(sig, pitch, conf, amp, batch, n, t_frames, hop, pre_emph, sample_rate, min_freq, max_freq, threshold, s); break;
+    case 2048: err = launch<8>(sig, pitch, conf, amp, batch, n, t_frames, hop, pre_emph, sample_rate, min_freq, max_freq, threshold, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);

@@ -16,6 +16,10 @@ import torch
 from sonido_sonar_tpu_torch.ops.tables import device_table
 
 _EPS = 1e-10
+CHROMA_LABELS = ["C", "C#", "D", "D#", "E", "F", "F#", "G", "G#", "A", "A#", "B"]
+# key profiles (chroma_stft.go:249-251)
+_MAJOR_PROFILE = np.array([1.0, 0.2, 0.6, 0.2, 0.8, 0.6, 0.2, 1.0, 0.2, 0.6, 0.2, 0.4])
+_MINOR_PROFILE = np.array([1.0, 0.2, 0.4, 0.6, 0.2, 0.8, 0.2, 0.6, 0.8, 0.2, 0.4, 0.2])
 
 
 @functools.lru_cache(maxsize=32)
@@ -64,3 +68,22 @@ def chroma_normalize(energy: torch.Tensor) -> torch.Tensor:
     """Unit-sum normalization of [..., 12] energies."""
     total = torch.sum(energy, dim=-1, keepdim=True)
     return torch.where(total > _EPS, energy / torch.clamp_min(total, _EPS), energy)
+
+
+def _key_profiles() -> np.ndarray:
+    """[24, 12]: the major profile rolled to roots 0..11, then the minor."""
+    rows = [np.roll(_MAJOR_PROFILE, r) for r in range(12)]
+    rows += [np.roll(_MINOR_PROFILE, r) for r in range(12)]
+    return np.stack(rows)
+
+
+def key_correlations(mean_chroma: torch.Tensor) -> torch.Tensor:
+    """[..., 12] -> [..., 24] Pearson correlations with the key profiles:
+    index r = major root r, 12 + r = minor root r (chroma_stft.go:240-330)."""
+    p = device_table(_key_profiles, (), mean_chroma.device)
+    x = mean_chroma[..., None, :]
+    mx = torch.mean(x, dim=-1, keepdim=True)
+    my = torch.mean(p, dim=-1, keepdim=True)
+    num = torch.sum((x - mx) * (p - my), dim=-1)
+    den = torch.sqrt(torch.sum((x - mx) ** 2, dim=-1) * torch.sum((p - my) ** 2, dim=-1))
+    return torch.where(den < _EPS, 0.0, num / torch.clamp_min(den, _EPS))

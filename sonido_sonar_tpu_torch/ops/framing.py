@@ -34,19 +34,26 @@ def kernel_signal(
     signal: torch.Tensor, window_size: int, hop_size: int
 ) -> Tuple[torch.Tensor, int, int]:
     """Check a signal for one of the framed CUDA kernels and view it as
-    [B, N]: returns (signal_2d, B, T). Raises ValueError on anything the
+    rows: [..., N] -> (signal_2d [B, N], B, T), B the product of the
+    leading axes (1 for an [N] row). Raises ValueError on anything the
     kernels do not take — they read float32, contiguous rows of at least
-    one window, and never convert or copy."""
+    one window, and never convert or copy (the [B, N] view of a
+    contiguous tensor is free). Callers reshape each [B, ...] output
+    back to `signal.shape[:-1] + (...)`."""
     if signal.dtype != torch.float32:
         raise ValueError(f"kernel input must be float32, got {signal.dtype}")
-    if signal.dim() not in (1, 2):
-        raise ValueError(f"kernel input must be [N] or [B, N], got {tuple(signal.shape)}")
+    if signal.dim() < 1:
+        raise ValueError(
+            f"kernel input must have a sample axis ([N] or [B, N], or more "
+            f"leading axes), got {tuple(signal.shape)}"
+        )
     if not signal.is_contiguous():
         raise ValueError("kernel input must be contiguous")
     if hop_size < 1:
         raise ValueError(f"hop size must be >= 1, got {hop_size}")
-    sig = signal if signal.dim() == 2 else signal[None, :]
-    b, n = sig.shape
+    n = signal.shape[-1]
+    sig = signal.view(-1, n)
+    b = sig.shape[0]
     t = num_frames(n, window_size, hop_size)
     if b < 1 or t < 1:
         raise ValueError(

@@ -93,7 +93,7 @@ def stft_magnitude_hopper(
     window_type: WindowType = WindowType.HANN,
     pre_emph: float = 0.0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """[B, N] or [N] float32 -> (magnitude [.., T, F], aux dict of [.., T]).
+    """[..., N] float32 -> (magnitude [..., T, F], aux dict of [..., T]).
 
     CPU tensor: the plain version. CUDA tensor: the K1 kernel, which
     takes a float32 contiguous signal and a power-of-two window in
@@ -119,10 +119,9 @@ def stft_magnitude_hopper(
             float(pre_emph), torch.cuda.current_stream(dev).cuda_stream,
         )
     stft_magnitude_hopper.launches += 1
-    aux_dict = dict(zip(AUX_KEYS, aux.unbind(0)))
-    if signal.dim() == 1:
-        return mag[0], {k: v[0] for k, v in aux_dict.items()}
-    return mag, aux_dict
+    lead = signal.shape[:-1]
+    mag = mag.view(lead + (t, f_bins))
+    return mag, {k: v.view(lead + (t,)) for k, v in zip(AUX_KEYS, aux.unbind(0))}
 
 
 stft_magnitude_hopper.launches = 0

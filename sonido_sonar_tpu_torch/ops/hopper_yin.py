@@ -2,10 +2,10 @@
 and its launch counter.
 
 Counterpart of `sonido_sonar_tpu/ops/pallas_yin.py` (`yin_pitch_pallas`,
-without the period-amplitude option); the kernel is `csrc/yin.cu`. For
-a CPU tensor the wrapper runs the plain version (pre-emphasis, framing,
-`ops/pitch.yin_pitch`); for a CUDA tensor it launches the kernel or
-raises — nothing falls back.
+with its period-amplitude option); the kernel is `csrc/yin.cu`. For a
+CPU tensor the wrapper runs the plain version (pre-emphasis, framing,
+`ops/pitch.yin_pitch`, and the period amplitude over the frames); for a
+CUDA tensor it launches the kernel or raises — nothing falls back.
 """
 
 from __future__ import annotations
@@ -20,6 +20,27 @@ from sonido_sonar_tpu_torch.ops.framing import frame_signal, kernel_signal
 from sonido_sonar_tpu_torch.ops.pitch import PitchParams, yin_pitch
 
 KERNEL_WINDOWS = (256, 512, 1024, 2048)
+_EPS = 1e-10
+
+
+def period_amplitude(
+    frames: torch.Tensor, pitch: torch.Tensor, sample_rate: int
+) -> torch.Tensor:
+    """RMS over the first pitch period of each frame, [..., T, W] and
+    [..., T] -> [..., T] (pallas_yin.py:356-368): plen =
+    clamp(trunc(sr / max(pitch, eps)), 1, W - 1) for a voiced frame, 1
+    otherwise. The division is IEEE float32 (not torch's scalar
+    reciprocal-multiply), so plen truncates where the kernel's does."""
+    w = frames.shape[-1]
+    period = torch.where(
+        pitch > 0,
+        torch.full_like(pitch, float(sample_rate)) / torch.clamp_min(pitch, _EPS),
+        0.0,
+    )
+    plen = torch.clamp(period.to(torch.int32), 1, w - 1)
+    j = torch.arange(w, device=frames.device)
+    psum = torch.sum(torch.where(j < plen[..., None], frames * frames, 0.0), dim=-1)
+    return torch.sqrt(psum / plen.to(torch.float32))
 
 
 def yin_pitch_plain(
@@ -31,8 +52,10 @@ def yin_pitch_plain(
     max_freq: float,
     yin_threshold: float = 0.15,
     pre_emph: float = 0.0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of K2: (pitch, confidence, voicing), each [..., T]."""
+    with_period_amp: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain version of K2: (pitch, confidence, voicing[, amplitude]),
+    each [..., T]."""
     x = signal.to(torch.float32)
     if pre_emph != 0.0:
         x = pre_emphasis(x, pre_emph)
@@ -40,7 +63,11 @@ def yin_pitch_plain(
         sample_rate=sample_rate, window_size=window_size, min_freq=min_freq,
         max_freq=max_freq, yin_threshold=yin_threshold,
     )
-    return yin_pitch(frame_signal(x, window_size, hop_size), params)
+    frames = frame_signal(x, window_size, hop_size)
+    pitch, conf, voicing = yin_pitch(frames, params)
+    if with_period_amp:
+        return pitch, conf, voicing, period_amplitude(frames, pitch, sample_rate)
+    return pitch, conf, voicing
 
 
 def yin_pitch_hopper(
@@ -52,9 +79,11 @@ def yin_pitch_hopper(
     max_freq: float,
     yin_threshold: float = 0.15,
     pre_emph: float = 0.0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """[B, N] or [N] float32 -> (pitch, confidence, voicing), each [.., T];
-    voicing is the confidence.
+    with_period_amp: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """[..., N] float32 -> (pitch, confidence, voicing), each [..., T];
+    voicing is the confidence. `with_period_amp` appends the period
+    amplitude as a fourth output.
 
     CPU tensor: the plain version. CUDA tensor: the K2 kernel, which
     takes a float32 contiguous signal and a window in KERNEL_WINDOWS;
@@ -63,7 +92,7 @@ def yin_pitch_hopper(
     if signal.device.type == "cpu":
         return yin_pitch_plain(
             signal, window_size, hop_size, sample_rate, min_freq, max_freq,
-            yin_threshold, pre_emph,
+            yin_threshold, pre_emph, with_period_amp,
         )
     if signal.device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {signal.device}")
@@ -71,19 +100,24 @@ def yin_pitch_hopper(
         raise ValueError(f"K2 needs a window in {KERNEL_WINDOWS}, got {window_size}")
     sig, b, t = kernel_signal(signal, window_size, hop_size)
     dev = signal.device
-    pitch = torch.empty((b, t), dtype=torch.float32, device=dev)
-    conf = torch.empty((b, t), dtype=torch.float32, device=dev)
+    out = torch.empty((3 if with_period_amp else 2, b, t), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _build.call(
-            "sonido_yin_pitch", sig.data_ptr(), pitch.data_ptr(), conf.data_ptr(),
+            "sonido_yin_pitch", sig.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr() if with_period_amp else None,
             b, sig.shape[1], t, window_size, hop_size, float(pre_emph),
             float(sample_rate), float(min_freq), float(max_freq), float(yin_threshold),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     yin_pitch_hopper.launches += 1
-    if signal.dim() == 1:
-        pitch, conf = pitch[0], conf[0]
+    yin_pitch_hopper.amp_launches += int(with_period_amp)
+    outs = [o.view(signal.shape[:-1] + (t,)) for o in out.unbind(0)]
+    if with_period_amp:
+        pitch, conf, amp = outs
+        return pitch, conf, conf, amp
+    pitch, conf = outs
     return pitch, conf, conf
 
 
-yin_pitch_hopper.launches = 0
+yin_pitch_hopper.launches = 0      # every launch
+yin_pitch_hopper.amp_launches = 0  # the launches with the period amplitude

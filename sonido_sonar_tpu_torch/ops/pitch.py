@@ -166,7 +166,7 @@ def yin_pitch_from_signal(
     params: PitchParams,
     pre_emph: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Frame-wise YIN straight from PCM [B, N] or [N] -> each [..., T],
+    """Frame-wise YIN straight from PCM [..., N] -> each [..., T],
     through the K2 wrapper: the CUDA kernel for a CUDA tensor, the plain
     version (`yin_pitch` over frames) for a CPU tensor. `pre_emph != 0`
     pre-emphasizes the signal first (ops/filters.pre_emphasis)."""
@@ -176,3 +176,18 @@ def yin_pitch_from_signal(
         signal, frame_size, hop_size, params.sample_rate, params.min_freq,
         params.max_freq, params.yin_threshold, pre_emph=pre_emph,
     )
+
+
+def detect_pitch_track(
+    pcm: torch.Tensor,
+    sample_rate: int,
+    frame_size: int = 1024,
+    hop_size: int = 512,
+    params: PitchParams | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Frame-wise YIN pitch track over PCM [..., N] -> (pitch,
+    confidence, voicing) each [..., T], through the K2 wrapper. The fixed
+    1024/512 default is the extractors' hardcoded framing
+    (extractors/speech.go:468-469, reference quirk #8)."""
+    p = params or PitchParams(sample_rate=sample_rate, window_size=frame_size)
+    return yin_pitch_from_signal(pcm, frame_size, hop_size, p)

@@ -94,11 +94,33 @@ def zcr(frames: torch.Tensor, sample_rate: int) -> torch.Tensor:
     return zero_crossings(frames) / (frames.shape[-1] / float(sample_rate))
 
 
-def spectral_descriptor_bundle(magnitude: torch.Tensor, sample_rate: int) -> dict:
-    """Centroid, bandwidth, flatness, crest, slope and flux from shared
-    passes over [..., T, F] magnitudes, with the same expressions and
-    masks as the JAX bundle (`skip_rolloff=True`: the main path takes
-    rolloff from the K1 kernel's epilogue)."""
+def zcr_from_signal(
+    signal: torch.Tensor, window_size: int, hop_size: int, sample_rate: int
+) -> torch.Tensor:
+    """`zcr` over the frames of `signal` without the [..., T, W] frames
+    tensor: frame j counts the changes between samples i and i+1 for i
+    in [j*hop, j*hop + W - 1), read off an integer prefix sum (exact)."""
+    from sonido_sonar_tpu_torch.ops.framing import num_frames
+
+    t = num_frames(signal.shape[-1], window_size, hop_size)
+    nonneg = signal >= 0
+    changes = (nonneg[..., 1:] != nonneg[..., :-1]).to(torch.int32)
+    cs = torch.nn.functional.pad(torch.cumsum(changes, dim=-1, dtype=torch.int32), (1, 0))
+    starts = torch.arange(t, device=signal.device) * hop_size
+    counts = cs[..., starts + window_size - 1] - cs[..., starts]
+    return counts.to(torch.float32) / (window_size / float(sample_rate))
+
+
+def spectral_descriptor_bundle(
+    magnitude: torch.Tensor,
+    sample_rate: int,
+    rolloff_threshold: float = 0.85,
+    skip_rolloff: bool = False,
+) -> dict:
+    """Centroid, rolloff, bandwidth, flatness, crest, slope and flux
+    from shared passes over [..., T, F] magnitudes, with the same
+    expressions and masks as the JAX bundle. `skip_rolloff=True` leaves
+    rolloff out, for callers that take it from the K1 kernel's epilogue."""
     from sonido_sonar_tpu_torch.ops.stft import spectral_flux
 
     m = magnitude
@@ -147,7 +169,7 @@ def spectral_descriptor_bundle(magnitude: torch.Tensor, sample_rate: int) -> dic
         m_sum > 0, torch.sqrt(bw_num / torch.clamp_min(m_sum, _EPS)), 0.0
     )
 
-    return {
+    out = {
         "spectral_centroid": centroid,
         "spectral_bandwidth": bandwidth,
         "spectral_flatness": flatness,
@@ -155,3 +177,8 @@ def spectral_descriptor_bundle(magnitude: torch.Tensor, sample_rate: int) -> dic
         "spectral_slope": slope,
         "spectral_flux": spectral_flux(m),
     }
+    if not skip_rolloff:
+        reached = torch.cumsum(power, dim=-1) >= rolloff_threshold * p_sum[..., None]
+        idx = torch.argmax(reached.to(torch.uint8), dim=-1)
+        out["spectral_rolloff"] = torch.where(p_sum > 0, freqs[idx], 0.0)
+    return out

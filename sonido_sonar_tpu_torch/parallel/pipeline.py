@@ -1,13 +1,19 @@
-"""Batched fingerprint pipeline — the port's main path.
+"""Batched pipelines — the port's main path and the extractor surfaces.
 
-Counterpart of `sonido_sonar_tpu/parallel/pipeline.batched_fingerprint_features`:
-[B, N] PCM -> dict of MFCC, chroma, spectral series, energy series and
-pitch, with the same arguments, defaults, output keys, shapes and dtypes.
-It follows the JAX package's fused-kernel branch on every device: the K1
-kernel (`ops/hopper_stft.py`) gives the magnitudes together with rms,
-zero crossings, the rolloff bin and the band ratios, and the K2 kernel
-(`ops/hopper_yin.py`) gives pitch from the raw PCM at 1024/512. On a CPU
-tensor both run their plain PyTorch versions.
+Counterpart of `sonido_sonar_tpu/parallel/pipeline.py`:
+- `batched_fingerprint_features`: [B, N] PCM -> dict of MFCC, chroma,
+  spectral series, energy series and pitch, with the same arguments,
+  defaults, output keys, shapes and dtypes. It follows the JAX package's
+  fused-kernel branch on every device: the K1 kernel (`ops/hopper_stft.py`)
+  gives the magnitudes together with rms, zero crossings, the rolloff bin
+  and the band ratios, and the K2 kernel (`ops/hopper_yin.py`) gives pitch
+  from the raw PCM at 1024/512.
+- `batched_speech_analysis`, `batched_speech_extractor_features`: the
+  speech extractor's whole payload (K1, K2, and K2 with period amplitude
+  in the voice-quality chain).
+- `batched_music_extractor_features`: the music extractor's payload (K1
+  twice, K4 three times).
+On a CPU tensor every kernel runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -18,13 +24,30 @@ import torch
 
 from sonido_sonar_tpu_torch.config.config import WindowType
 from sonido_sonar_tpu_torch.ops import spectral as S
-from sonido_sonar_tpu_torch.ops.chroma import chroma_from_magnitude
+from sonido_sonar_tpu_torch.ops import temporal as T
+from sonido_sonar_tpu_torch.ops.chroma import chroma_from_magnitude, key_correlations
+from sonido_sonar_tpu_torch.ops.filters import dc_removal, pre_emphasis_for_content
+from sonido_sonar_tpu_torch.ops.framing import num_frames
 from sonido_sonar_tpu_torch.ops.hopper_stft import stft_magnitude_hopper
 from sonido_sonar_tpu_torch.ops.mfcc import MFCCParams, mfcc
-from sonido_sonar_tpu_torch.ops.pitch import PitchParams, yin_pitch_from_signal
+from sonido_sonar_tpu_torch.ops.pitch import PitchParams, yin_pitch, yin_pitch_from_signal
+from sonido_sonar_tpu_torch.ops.speech import analyze_speech, hnr_acf
+from sonido_sonar_tpu_torch.ops.stft import spectral_flux
+from sonido_sonar_tpu_torch.ops.tables import device_table
 from sonido_sonar_tpu_torch.ops.temporal import energy_variance
+from sonido_sonar_tpu_torch.ops.tonal import chord_matrix
 
 _EPS = 1e-10
+
+
+def require_fp32_matmuls(pcm: torch.Tensor, what: str) -> None:
+    """Raise on a CUDA input while TF32 matmuls are on: the DFT, mel,
+    DCT, chroma and chord matmuls feed logs and ratios."""
+    if pcm.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError(
+            f"{what} needs true float32 matmuls: "
+            "set torch.backends.cuda.matmul.allow_tf32 = False"
+        )
 
 
 def batched_fingerprint_features(
@@ -49,11 +72,7 @@ def batched_fingerprint_features(
     feed log and ratio math and must run in true float32, so TF32 must be
     off (`torch.backends.cuda.matmul.allow_tf32 = False`, the default).
     """
-    if pcm.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise ValueError(
-            "batched_fingerprint_features needs true float32 matmuls: "
-            "set torch.backends.cuda.matmul.allow_tf32 = False"
-        )
+    require_fp32_matmuls(pcm, "batched_fingerprint_features")
     x = pcm.to(torch.float32).contiguous()
     mag, aux = stft_magnitude_hopper(
         x, window_size, hop_size, window_type, pre_emph=pre_emphasis_coeff
@@ -65,7 +84,7 @@ def batched_fingerprint_features(
     )
     if enable_chroma:
         out["chroma"] = chroma_from_magnitude(mag, sample_rate, window_size)
-    out.update(S.spectral_descriptor_bundle(mag, sample_rate))
+    out.update(S.spectral_descriptor_bundle(mag, sample_rate, skip_rolloff=True))
     if enable_contrast:
         out["spectral_contrast"] = S.spectral_contrast(mag, sample_rate, 6)
 
@@ -89,4 +108,162 @@ def batched_fingerprint_features(
         out["pitch"] = pitch
         out["pitch_confidence"] = conf
         out["voicing"] = voicing
+    return out
+
+
+def spectral_tilt_1024(x: torch.Tensor) -> torch.Tensor:
+    """Per-frame spectral tilt at the fixed 1024/512 framing
+    (extractors/speech.go:530-585) from hop-block sums: frame j covers
+    [s, s+1024); the sums run over the diffs [s, s+1023) and the samples
+    [s+1, s+1024) — a whole-window block sum minus one boundary term."""
+    t = num_frames(x.shape[-1], 1024, 512)
+    d = x[..., 1:] - x[..., :-1]
+    d2 = torch.nn.functional.pad(d * d, (0, 1))
+    x2 = x * x
+    starts = torch.arange(t, device=x.device) * 512
+    high_e = T.framed_sum_hopblocks(d2, 1024, 512, t) - d2[..., starts + 1023]
+    low_e = T.framed_sum_hopblocks(x2, 1024, 512, t) - x2[..., starts]
+    return torch.where(
+        low_e > 0,
+        -10.0 * torch.log10(torch.clamp_min(high_e / torch.clamp_min(low_e, _EPS), _EPS)),
+        0.0,
+    )
+
+
+def batched_speech_analysis(pcm: torch.Tensor, sample_rate: int) -> Dict[str, torch.Tensor]:
+    """The speech-analysis stack (LPC -> formants -> voice quality ->
+    speech detection, ops/speech.py) over [B, N] PCM, as a dict of
+    [B]-leading results."""
+    res = analyze_speech(pcm.to(torch.float32), sample_rate)
+    return {
+        "formant_frequencies": res.formants.frequencies,
+        "formant_count": res.formants.count,
+        "vocal_tract_length": res.formants.vocal_tract_length,
+        "jitter": res.voice_quality.jitter,
+        "shimmer": res.voice_quality.shimmer,
+        "hnr": res.voice_quality.hnr,
+        "f0_mean": res.voice_quality.mean_f0,
+        "voicing_strength": res.voice_quality.voicing_strength,
+        "is_speech": res.is_speech,
+        "quality": res.quality_score,
+    }
+
+
+def batched_speech_extractor_features(
+    pcm: torch.Tensor,
+    sample_rate: int = 44100,
+    window_size: int = 1024,
+    hop_size: int = 256,
+) -> Dict[str, torch.Tensor]:
+    """The speech extractor's whole surface (extractors/speech.go): the
+    fingerprint features (no chroma) + the speech analysis chain on the
+    speech-pre-emphasized signal + spectral tilt, pauses and speech rate."""
+    out = batched_fingerprint_features(
+        pcm, sample_rate=sample_rate, window_size=window_size,
+        hop_size=hop_size, enable_chroma=False, enable_contrast=True,
+    )
+    x = pre_emphasis_for_content(pcm.to(torch.float32), "speech")
+    out.update(batched_speech_analysis(x, sample_rate))
+    # the extractor gates tilt on is_speech (extractors/speech.py)
+    out["spectral_tilt"] = torch.where(out["is_speech"][..., None], spectral_tilt_1024(x), 0.0)
+    ste = T.short_time_energy_cumsum(x, window_size, hop_size)
+    out["pause_duration"], out["pause_count"] = T.pause_durations(ste, hop_size, sample_rate)
+    silence_ratio = T.silence_ratio_percentile(ste)
+    out["speech_rate"] = torch.where(out["is_speech"], 4.0 * (1.0 - silence_ratio), 0.0)
+    return out
+
+
+def batched_music_extractor_features(
+    pcm: torch.Tensor,
+    sample_rate: int = 44100,
+    window_size: int = 1024,
+    hop_size: int = 256,
+    enable_cqt: bool = False,
+    enable_hpcp: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """The music extractor's whole surface (extractors/music.go:178-243)
+    over [B, N] PCM: DC removal + music pre-emphasis, the descriptor
+    bundle + 6-band contrast, ZCR of the preprocessed signal, MFCC
+    13/26/lifter 22, chroma + key correlations + chord match, flux onsets
+    (0.3, 50 ms), -40 dB silence, interval-histogram tempo, energy, and
+    per-frame pitch / HNR / inharmonicity over the contiguous frame split."""
+    if enable_cqt or enable_hpcp:
+        raise NotImplementedError(
+            "batched_music_extractor_features: CQT and HPCP chromas are not ported "
+            "yet (ROADMAP queue 1, item 9: ops/chroma.py chroma_cqt, hpcp_from_magnitude)"
+        )
+    require_fp32_matmuls(pcm, "batched_music_extractor_features")
+    x = pcm.to(torch.float32).contiguous()
+    pre = pre_emphasis_for_content(dc_removal(x), "music")
+    mag, _ = stft_magnitude_hopper(x, window_size, hop_size)
+    t = mag.shape[-2]
+    out: Dict[str, torch.Tensor] = {}
+
+    # spectral (music.go:261-302); ZCR of the preprocessed signal
+    out.update(S.spectral_descriptor_bundle(mag, sample_rate))
+    out["spectral_contrast"] = S.spectral_contrast(mag, sample_rate, 6)
+    out["zcr"] = S.zcr_from_signal(pre, window_size, hop_size, sample_rate)[..., :t]
+    out["mfcc"] = mfcc(
+        mag, sample_rate, window_size,
+        MFCCParams(num_coefficients=13, num_mel_filters=26, lifter_coeff=22.0),
+    )
+
+    # chroma + key + chords
+    chroma = chroma_from_magnitude(mag, sample_rate, window_size)
+    out["chroma"] = chroma
+    out["key_correlations"] = key_correlations(torch.mean(chroma, dim=-2))
+    cn = chroma / torch.clamp_min(torch.linalg.vector_norm(chroma, dim=-1, keepdim=True), _EPS)
+    chord_sims = torch.matmul(cn, device_table(chord_matrix, (), mag.device).T)  # [B, T, chords]
+    out["chord_index"] = torch.argmax(chord_sims, dim=-1).to(torch.int32)
+    out["chord_score"] = torch.amax(chord_sims, dim=-1)
+
+    # temporal (music.go:378-430)
+    out["rms_energy"] = T.short_time_energy(pre, window_size, hop_size)
+    onset_mask, onset_count = T.detect_onsets_from_flux(
+        spectral_flux(mag), hop_size, sample_rate, threshold=0.3, min_interval_sec=0.05
+    )
+    out["onset_mask"] = onset_mask
+    out["onset_density"] = onset_count.to(torch.float32) / (x.shape[-1] / float(sample_rate))
+    out["attack_time"] = torch.where(onset_mask, 0.01, 0.0)
+    out["peak_amplitude"] = torch.amax(torch.abs(pre), dim=-1)
+    out["average_amplitude"] = torch.mean(torch.abs(pre), dim=-1)
+    # fixed 1024/512 framing per dynamic_range.go:27-28
+    out["dynamic_range"] = T.dynamic_range_db(pre, 1024, 512)
+    out["crest_factor"] = T.crest_factor_frames(pre, window_size, hop_size)
+    silence = T.silence_mask_db(pre, window_size, hop_size, -40.0)
+    out["silence_ratio"] = torch.mean(silence.to(torch.float32), dim=-1)
+    # music envelope framing (music.go:383-386): frame len/numFrames, config hop
+    env_frame = max(pre.shape[-1] // out["rms_energy"].shape[-1], 1)
+    out["envelope_shape"] = T.rms_envelope(pre, env_frame, hop_size)
+    out["tempo_bpm"] = T.estimate_tempo(pre, sample_rate)
+
+    # energy (music.go:478-525)
+    ste = out["rms_energy"]
+    out["energy_variance"] = T.energy_variance(ste)
+    out["energy_entropy"] = torch.where(ste > 0, -ste * torch.log(ste + 1e-10), 0.0)
+    out["loudness_range"] = T.loudness_range(pre, sample_rate)
+    power = mag * mag
+    split = mag.shape[-1] // 4
+    total = torch.sum(power, dim=-1)
+    denom = torch.clamp_min(total, _EPS)
+    out["low_energy_ratio"] = torch.where(total > 0, torch.sum(power[..., :split], dim=-1) / denom, 0.0)
+    out["high_energy_ratio"] = torch.where(total > 0, torch.sum(power[..., split:], dim=-1) / denom, 0.0)
+
+    # harmonic (music.go:528-592) over the contiguous frame split
+    # (frame len/numFrames, no overlap). This YIN and hnr_acf are plain
+    # PyTorch on every device, not K2's plain version standing in for a
+    # kernel: the JAX package runs them as XLA (ops/pitch.yin_pitch on
+    # [B, T, N/T] frames, the DFT-matmul hnr_acf) on the TPU too.
+    frame_size = x.shape[-1] // t
+    frames = pre[..., : t * frame_size].reshape(pre.shape[:-1] + (t, frame_size))
+    pitch, conf, voicing = yin_pitch(frames, PitchParams(sample_rate=sample_rate, window_size=frame_size))
+    hnr = hnr_acf(frames, sample_rate, torch.clamp_min(pitch, 1.0))
+    out["pitch"] = pitch
+    out["pitch_confidence"] = conf
+    out["voicing"] = voicing
+    out["hnr"] = torch.where(pitch > 0, hnr, 0.0)
+    out["inharmonicity"] = torch.where(
+        (pitch > 0) & (conf > 0.5), 1.0 - torch.clamp(voicing, 0.0, 1.0), 0.0
+    )
+    out["tonal_centroid"] = out["spectral_centroid"][..., :t] * voicing
     return out

@@ -5,19 +5,27 @@ tables (windowed DFT basis, mel filterbank, DCT, lifter, chroma fold,
 frequency grid) and the config. `constants_from_numpy` takes the JAX
 package's tables as numpy arrays and returns them as the port's tensors,
 so they can be held to the tables the port builds itself.
-`feature_config_from_dict` reads a config written by the JAX package's
-`config.asdict`.
+`feature_config_from_dict` and `fingerprint_config_from_dict` read
+configs written by the JAX package's `config.asdict`;
+`features_to_numpy` flattens an ExtractedFeatures of either package into
+one dict of numpy arrays, so the tests compare both with one function.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-from sonido_sonar_tpu_torch.config.config import FeatureConfig, WindowType
+from sonido_sonar_tpu_torch.config.config import (
+    ContentAwareConfig,
+    ContentType,
+    FeatureConfig,
+    FingerprintConfig,
+    WindowType,
+)
 
 CONSTANT_KEYS = (
     "dft_basis",       # [W, 2F] windowed rDFT basis (ops/stft._windowed_dft_matrix)
@@ -64,3 +72,54 @@ def feature_config_from_dict(d: Mapping) -> FeatureConfig:
             (str(name), float(w)) for name, w in kw["similarity_weights"]
         )
     return FeatureConfig(**kw)
+
+
+def _check_fields(cls, d: Mapping) -> None:
+    unknown = sorted(set(d) - {f.name for f in dataclasses.fields(cls)})
+    if unknown:
+        raise ValueError(f"unknown {cls.__name__} fields {unknown}")
+
+
+def fingerprint_config_from_dict(d: Mapping) -> FingerprintConfig:
+    """FingerprintConfig from a dict such as the JAX package's
+    `config.asdict(FingerprintConfig(...))`: the feature config, the
+    content-aware config and the hashing flag. The per-content configs
+    the JAX `ContentAwareConfigManager.get_generation_config` returns are
+    FingerprintConfigs too, and convert the same way. Unknown keys raise."""
+    _check_fields(FingerprintConfig, d)
+    kw = dict(d)
+    if "feature_config" in kw:
+        kw["feature_config"] = feature_config_from_dict(kw["feature_config"])
+    if "content_aware" in kw:
+        ca = dict(kw["content_aware"])
+        _check_fields(ContentAwareConfig, ca)
+        if "default_content_type" in ca:
+            ca["default_content_type"] = ContentType(ca["default_content_type"])
+        kw["content_aware"] = ContentAwareConfig(**ca)
+    return FingerprintConfig(**kw)
+
+
+def flatten_features(features: Any, prefix: str = "") -> Dict[str, Any]:
+    """Flatten an ExtractedFeatures of either package into
+    {"spectral_features.spectral_centroid": array, ...}: one key per array
+    field, the arrays as they are; None fields and `metadata` left out."""
+    out: Dict[str, Any] = {}
+    for f in dataclasses.fields(features):
+        v = getattr(features, f.name)
+        if v is None or f.name == "metadata":
+            continue
+        if dataclasses.is_dataclass(v):
+            out.update(flatten_features(v, prefix + f.name + "."))
+        else:
+            out[prefix + f.name] = v
+    return out
+
+
+def features_to_numpy(features: Any) -> Dict[str, np.ndarray]:
+    """`flatten_features` with every array on the host as numpy (tensors,
+    JAX or numpy arrays alike), so both packages compare with one
+    function."""
+    return {
+        k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        for k, v in flatten_features(features).items()
+    }

@@ -71,6 +71,90 @@ FEATURE_TOLERANCES = {
 }
 
 
+# K2's period amplitude (pallas_yin.py:356-368): RMS over the first
+# plen = trunc(sr / pitch) samples. Where two pitches agree to ~3e-6
+# relative, plen still moves by one sample where sr / pitch sits at an
+# integer, and the amplitude then moves by ~1/plen. So the check counts
+# the frames whose amplitude misses rtol 1e-5 (summation order alone
+# gives ~1e-7) and allows at most this share of them.
+AMP_RTOL = 1e-5
+AMP_MISS_SHARE = 0.01
+# Shimmer and amplitude stability, the port against JAX on the CPU: the
+# JAX CPU path takes each period's energy as the difference of two
+# prefixes of a float32 cumsum of squares over the whole row
+# (ops/speech.py:387-408), which loses ~2^-24 * n * mean(x^2) on a row of
+# n samples, against ~plen * mean(x^2) for the period (plen >= sr/500 =
+# 88 at 44.1 kHz). Two such errors per period give a relative amplitude
+# error up to 2 * 2^-24 * n / 88; shimmer is a percentage of relative
+# amplitude differences (x 100), amplitude stability a coefficient of
+# variation (x 1). The port's frame-based plain version has no such
+# error, so the bound is the reference's: per sample of row length,
+SHIMMER_ATOL_PER_SAMPLE = 100 * 2 * 2.0**-24 / 88
+AMP_STABILITY_ATOL_PER_SAMPLE = 2 * 2.0**-24 / 88
+# dc_removal: the two packages' chunked float32 recurrences round
+# differently by ~1e-7 of the signal scale; a sample within this
+# distance of 0 may change sign after DC removal + pre-emphasis, and its
+# frames are exempt from the exact zero-crossing comparison.
+DC_NEAR_ZERO = 1e-5
+
+# The extractor payloads (program dicts and ExtractedFeatures fields,
+# keyed by the last component of the field path); FEATURE_TOLERANCES
+# above also applies. (rtol, atol):
+EXTRACTOR_TOLERANCES = {
+    # float32 sums of x^2 or |x| over frames in another order (~1e-7)
+    "short_time_energy": (1e-5, 1e-9),
+    "envelope_shape": (1e-5, 1e-9),
+    "average_amplitude": (1e-5, 1e-9),
+    "peak_amplitude": (1e-5, 1e-9),
+    "crest_factor": (1e-5, 1e-6),
+    "noise_measure": (1e-5, 1e-6),
+    # dB (LU) of such sums: 1e-5 relative is ~4e-5 dB
+    "loudness_range": (0.0, 1e-3),
+    "dynamic_range": (0.0, 1e-3),
+    "spectral_tilt": (1e-5, 1e-4),
+    # correlations and cosines of chroma fractions (chroma: 1e-5)
+    "key_correlations": (0.0, 1e-5),
+    "chord_score": (0.0, 1e-5),
+    # per-frame values of the pitch track, on frames whose voicing
+    # decision agrees (check_pitch bounds the share that does not):
+    # the confidence bound, x10 where the reference scales it
+    "pitch_confidence": (0.0, CONF_ATOL),
+    "voicing": (0.0, CONF_ATOL),
+    "voicing_probability": (0.0, CONF_ATOL),
+    "voicing_strength": (0.0, CONF_ATOL),
+    "inharmonicity": (0.0, CONF_ATOL),
+    "inharmonicity_ratio": (0.0, CONF_ATOL),
+    "harmonic_ratio": (1e-4, 10 * CONF_ATOL),
+    "tonal_centroid": (PITCH_RTOL, 1e-2),
+    # HNR in dB from one autocorrelation lag (FFT against direct sums):
+    # ~1e-6 of r0 on r, near the -100 dB clamp that is ~1e-2 dB
+    "hnr": (1e-4, 1e-2),
+    "f0_mean": (PITCH_RTOL, 0.0),
+    "jitter": (0.0, 1e-3),
+    "quality": (0.0, 2e-3),
+    # formants: envelope peaks on the same 43 Hz bin grid
+    "formant_frequencies": (1e-5, 1e-2),
+    "vocal_tract_length": (1e-5, 1e-3),
+    # counts over frames and decisions on them: equal
+    "speech_rate": (0.0, 1e-6),
+    "pause_duration": (0.0, 1e-6),
+    "silence_ratio": (0.0, 1e-6),
+    "onset_density": (0.0, 1e-6),
+    "attack_time": (0.0, 1e-6),
+    "tempo_bpm": (0.0, 0.0),
+}
+_ALIASES = {
+    "zero_crossing_rate": "zcr",
+    "chroma_features": "chroma",
+    "pitch_estimate": "pitch",
+}
+# per-frame keys that follow the voicing decision of the pitch track
+_PITCH_DERIVED = (
+    "pitch_confidence", "voicing", "voicing_probability", "voicing_strength",
+    "inharmonicity", "inharmonicity_ratio", "harmonic_ratio", "tonal_centroid", "hnr",
+)
+
+
 def synth_pcm(
     batch: int, n: int, seed: int, sample_rate: int = 44100, device="cpu"
 ) -> torch.Tensor:
@@ -99,6 +183,42 @@ def synth_pcm(
     return x.to(torch.float32).contiguous()
 
 
+def voiced_pcm(batch: int, n: int, seed: int, sample_rate: int = 44100) -> torch.Tensor:
+    """[batch, n] float32 speech-like PCM on the CPU: every fourth row
+    white noise (sigma 0.1), the others 8-harmonic voices (f0 120-300 Hz
+    with 3 % vibrato at 5 Hz and 20 % tremolo at 3 Hz, so jitter and
+    shimmer are not zero) plus light noise; drawn from numpy's generator
+    seeded with `seed`."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / sample_rate
+    rows = []
+    for i, f0 in enumerate(rng.uniform(120.0, 300.0, batch)):
+        if i % 4 == 3:
+            rows.append(0.1 * rng.standard_normal(n))
+            continue
+        phase = 2 * np.pi * np.cumsum(f0 * (1 + 0.03 * np.sin(2 * np.pi * 5 * t))) / sample_rate
+        x = sum((0.5 / k) * np.sin(k * phase + rng.uniform(0, 2 * np.pi)) for k in range(1, 9))
+        rows.append(x * (1 + 0.2 * np.sin(2 * np.pi * 3 * t)) + 0.003 * rng.standard_normal(n))
+    return torch.from_numpy(np.stack(rows).astype(np.float32))
+
+
+def harmonic_clips(
+    batch: int, n: int, seed: int, sample_rate: int = 44100, f0: float = 196.0, device="cpu"
+) -> torch.Tensor:
+    """[batch, n] float32 music-like clips as the JAX bench's
+    generate-batch line builds them (bench.py:421-435): 4 harmonics of
+    f0 at 0.5/h, a per-row gain in [0.6, 1.0), noise sigma 0.01; gains
+    and noise from numpy's generator seeded with `seed`."""
+    rng = np.random.default_rng(seed)
+    gain = torch.from_numpy(0.6 + 0.4 * rng.random((batch, 1), dtype=np.float32)).to(device)
+    noise = torch.from_numpy(rng.standard_normal((batch, n), dtype=np.float32)).to(device)
+    tgrid = torch.arange(n, dtype=torch.float32, device=device) / sample_rate
+    sig = sum(
+        torch.sin(2 * np.pi * f0 * (h + 1) * tgrid + 0.1 * h) * (0.5 / (h + 1)) for h in range(4)
+    )
+    return (sig[None, :] * gain + 0.01 * noise).contiguous()
+
+
 def _close(name: str, got, ref, rtol, atol, errors, failures) -> None:
     got = np.asarray(got, dtype=np.float64)
     ref = np.asarray(ref, dtype=np.float64)
@@ -119,15 +239,16 @@ def _close(name: str, got, ref, rtol, atol, errors, failures) -> None:
 
 
 def near_zero_frames(
-    pcm: np.ndarray, window_size: int, hop_size: int, pre_emph: float
+    pcm: np.ndarray, window_size: int, hop_size: int, pre_emph: float,
+    threshold: float = ZC_NEAR_ZERO,
 ) -> np.ndarray:
     """[..., T] bool: frames of the pre-emphasized signal holding a sample
-    within ZC_NEAR_ZERO of 0."""
+    within `threshold` of 0."""
     x = np.asarray(pcm, dtype=np.float32)
     if pre_emph != 0.0:
         prev = np.concatenate([np.zeros_like(x[..., :1]), x[..., :-1]], axis=-1)
         x = x - np.float32(pre_emph) * prev
-    near = np.abs(x) < ZC_NEAR_ZERO
+    near = np.abs(x) < threshold
     frames = np.lib.stride_tricks.sliding_window_view(near, window_size, axis=-1)
     return frames[..., ::hop_size, :].any(axis=-1)
 
@@ -221,4 +342,91 @@ def check_features(
         failures.extend(f)
         _close("voicing_is_confidence", got["voicing"], got["pitch_confidence"],
                0.0, 0.0, errors, failures)
+    return errors, failures
+
+
+def check_period_amp(amp, ref_amp) -> Report:
+    """K2's period amplitude against a reference: the share of frames
+    beyond AMP_RTOL must stay under AMP_MISS_SHARE."""
+    a = np.asarray(amp, np.float64)
+    r = np.asarray(ref_amp, np.float64)
+    if a.shape != r.shape:
+        return {}, [f"period amplitude: shape {a.shape} != {r.shape}"]
+    rel = np.abs(a - r) / np.maximum(np.abs(r), 1e-30)
+    miss = rel > AMP_RTOL
+    errors = {"amp_max_rel": float(rel.max(initial=0.0)),
+              "amp_miss_share": float(miss.mean()) if miss.size else 0.0}
+    failures = []
+    if errors["amp_miss_share"] > AMP_MISS_SHARE:
+        failures.append(f"period amplitude: {errors['amp_miss_share']:.4f} of frames beyond "
+                        f"rtol {AMP_RTOL} (limit {AMP_MISS_SHARE})")
+    return errors, failures
+
+
+def check_extracted(
+    got: dict, ref: dict, sample_rate: int, window_size: int,
+    near_zero=None, n_samples: int = 0, chord_margin=None,
+) -> Report:
+    """Extractor payloads key by key: a program dict, or the flat dict of
+    `utils.convert.features_to_numpy`. `near_zero` ([..., T] bool) exempts
+    frames from the exact ZCR comparison; `n_samples` (row length) sets
+    the shimmer and amplitude-stability bounds; `chord_margin` ([..., T],
+    the reference's top-two chord score gap) exempts near-tied frames from
+    the chord index comparison."""
+    errors: Dict[str, float] = {}
+    failures: List[str] = []
+    if sorted(got) != sorted(ref):
+        failures.append(f"keys differ: {sorted(set(got) ^ set(ref))}")
+    keys = sorted(set(got) & set(ref))
+    agree = {}
+    for key in keys:  # voicing agreement of each pitch track, by its prefix
+        prefix, _, name = key.rpartition(".")
+        if _ALIASES.get(name, name) == "pitch":
+            conf_key = (prefix + "." if prefix else "") + "pitch_confidence"
+            p, rp = np.asarray(got[key]), np.asarray(ref[key])
+            e, f = check_pitch(p, got[conf_key], rp, ref[conf_key])
+            errors.update({f"{key}:{k}": v for k, v in e.items()})
+            failures.extend(f"{key}: {m}" for m in f)
+            agree[prefix] = ((p > 0) == (rp > 0), p.shape)
+    for key in keys:
+        prefix, _, name = key.rpartition(".")
+        name = _ALIASES.get(name, name)
+        g, r = np.asarray(got[key]), np.asarray(ref[key])
+        if g.dtype != r.dtype or g.shape != r.shape:
+            failures.append(f"{key}: {g.dtype}{g.shape} != {r.dtype}{r.shape}")
+            continue
+        if g.dtype.kind in "bi":
+            diff = g != r
+            if name == "chord_index" and chord_margin is not None:
+                diff &= ~(np.asarray(chord_margin) < 1e-5)
+            errors[key] = float(diff.sum())
+            if diff.any():
+                failures.append(f"{key}: {int(diff.sum())} of {diff.size} differ")
+            continue
+        if not np.isfinite(g).all():
+            failures.append(f"{key}: non-finite values")
+            continue
+        if name == "pitch":
+            continue
+        if name == "zcr":
+            near = near_zero if near_zero is not None else np.zeros(g.shape, bool)
+            _zero_crossings(key, g, r, near, errors, failures)
+            continue
+        if name == "spectral_rolloff":
+            _rolloff(key, g, r, (sample_rate / 2.0) / (window_size // 2), errors, failures)
+            continue
+        if name in ("shimmer", "amplitude_stability"):
+            per = SHIMMER_ATOL_PER_SAMPLE if name == "shimmer" else AMP_STABILITY_ATOL_PER_SAMPLE
+            tol = (0.0, per * n_samples)
+        elif name == "quality":
+            tol = (0.0, EXTRACTOR_TOLERANCES["quality"][1] + SHIMMER_ATOL_PER_SAMPLE * n_samples / 40)
+        else:
+            tol = EXTRACTOR_TOLERANCES.get(name) or FEATURE_TOLERANCES.get(name)
+        if tol is None:
+            failures.append(f"{key}: no tolerance stated")
+            continue
+        if name in _PITCH_DERIVED and prefix in agree and agree[prefix][1] == g.shape:
+            mask = agree[prefix][0]
+            g, r = g[mask], r[mask]
+        _close(key, g, r, *tol, errors, failures)
     return errors, failures

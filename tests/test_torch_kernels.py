@@ -1,5 +1,5 @@
-"""The port's K1 (STFT + aux) and K2 (YIN) modules held to the JAX
-package on the CPU.
+"""The port's K1 (STFT + aux), K2 (YIN, with its period amplitude) and
+K4 (onset thinning) modules held to the JAX package on the CPU.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; these tests
 hold that version to both of the JAX package's paths: the Pallas kernel
@@ -21,13 +21,15 @@ import jax.numpy as jnp  # noqa: E402
 from sonido_sonar_tpu.ops import framing as jframing  # noqa: E402
 from sonido_sonar_tpu.ops import pitch as jpitch  # noqa: E402
 from sonido_sonar_tpu.ops import spectral as jspectral  # noqa: E402
+from sonido_sonar_tpu.ops import temporal as jtemporal  # noqa: E402
 from sonido_sonar_tpu.ops.filters import pre_emphasis as j_pre_emphasis  # noqa: E402
+from sonido_sonar_tpu.ops.pallas_onsets import thin_onsets_pallas  # noqa: E402
 from sonido_sonar_tpu.ops.pallas_stft import stft_magnitude_pallas  # noqa: E402
 from sonido_sonar_tpu.ops.pallas_yin import yin_pitch_pallas  # noqa: E402
 from sonido_sonar_tpu.ops.stft import stft as j_stft  # noqa: E402
 from sonido_sonar_tpu_torch import _build  # noqa: E402
 from sonido_sonar_tpu_torch.ops import framing as tframing  # noqa: E402
-from sonido_sonar_tpu_torch.ops import hopper_stft, hopper_yin  # noqa: E402
+from sonido_sonar_tpu_torch.ops import hopper_onsets, hopper_stft, hopper_yin  # noqa: E402
 from sonido_sonar_tpu_torch.ops import pitch as tpitch  # noqa: E402
 from sonido_sonar_tpu_torch.utils import parity  # noqa: E402
 
@@ -160,7 +162,7 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     "make,msg",
     [
         (lambda: torch.zeros(2, 4096, dtype=torch.float64), "float32"),
-        (lambda: torch.zeros(2, 2, 4096), r"\[N\] or \[B, N\]"),
+        (lambda: torch.zeros(()), r"\[N\] or \[B, N\]"),
         (lambda: torch.zeros(4096, 2).T, "contiguous"),
         (lambda: torch.zeros(2, 1000), "no frame"),
         (lambda: torch.zeros(70000, 1024), "launch grid"),
@@ -176,21 +178,122 @@ def test_kernel_signal_views_rows():
     assert sig.shape == (1, 44100) and (b, t) == (1, 169)
     sig, b, t = tframing.kernel_signal(torch.zeros(3, 2048), 1024, 512)
     assert (b, t) == (3, 3)
+    x = torch.zeros(2, 3, 2048)
+    sig, b, t = tframing.kernel_signal(x, 1024, 512)
+    assert sig.shape == (6, 2048) and (b, t) == (6, 3)
+    assert sig.data_ptr() == x.data_ptr()  # a view, no copy
 
 
 def test_build_command_targets_hopper(tmp_path, monkeypatch):
     """nvcc by hand for sm_90a into a shared library with a C interface;
-    the library name follows the sources, and nvcc comes from CUDA_HOME."""
+    the library name follows the sources, and nvcc comes from CUDA_HOME.
+    Every kernel source is compiled, and every C entry point has its
+    ctypes signature: pointers and the stream as c_void_p."""
     cmd = _build.nvcc_command("nvcc", tmp_path / "lib.so")
     assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     assert {"-shared", "-fPIC", "-O3", "-std=c++17"} <= set(cmd)
     assert [c for c in cmd if c.endswith(".cu")] == [
         str(_build._PKG / s) for s in _build.SOURCES
     ]
+    assert {"csrc/stft.cu", "csrc/yin.cu", "csrc/onsets.cu"} == set(_build.SOURCES)
     assert all((_build._PKG / s).is_file() for s in _build.SOURCES)
+    import ctypes
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sigs = _build._SIGNATURES
+    assert sigs["sonido_yin_pitch"][:4] == (P, P, P, P)  # sig, pitch, conf, amp (nullable)
+    assert sigs["sonido_yin_pitch"][-1] == P and len(sigs["sonido_yin_pitch"]) == 15
+    assert sigs["sonido_thin_onsets"] == (P, P, I, I, I, P)
+    sources = "".join((_build._PKG / s).read_text() for s in _build.SOURCES)
+    for name, argtypes in sigs.items():
+        decl = sources[sources.index(f'extern "C" int {name}('):]
+        decl = decl[: decl.index(")")]
+        assert decl.count(",") + 1 == len(argtypes), name
+        assert F in argtypes or name == "sonido_thin_onsets"
     assert len(_build.source_hash()) == 16 and _build.source_hash() == _build.source_hash()
     nvcc = tmp_path / "bin" / "nvcc"
     nvcc.parent.mkdir()
     nvcc.write_text("")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     assert _build.find_nvcc() == str(nvcc)
+
+
+def test_k2_period_amp_plain_matches_pallas_interpret():
+    """Voice quality's call (ops/speech.py:375-382): 1024/256, 50-500 Hz,
+    on a speech-pre-emphasized signal, with the period amplitude."""
+    x = np.array(j_pre_emphasis(jnp.asarray(_pcm(2, 1.0, 8)), PRE))
+    p, c, v, a = hopper_yin.yin_pitch_hopper(
+        torch.from_numpy(x), 1024, 256, SR, 50.0, 500.0, with_period_amp=True
+    )
+    jp, jc, _, ja = yin_pitch_pallas(
+        jnp.asarray(x), 1024, 256, SR, 50.0, 500.0, interpret=True, with_period_amp=True
+    )
+    errors, failures = parity.check_pitch(p.numpy(), c.numpy(), np.asarray(jp), np.asarray(jc))
+    e2, f2 = parity.check_period_amp(a.numpy(), np.asarray(ja))
+    assert not failures + f2, (failures, f2, errors, e2)
+    assert errors["voiced_share"] > 0.25 and torch.equal(v, c)  # a row in 50-500 Hz
+    # without the option the same call gives the same three outputs
+    assert all(torch.equal(q, r) for q, r in zip(
+        hopper_yin.yin_pitch_hopper(torch.from_numpy(x), 1024, 256, SR, 50.0, 500.0), (p, c, v)))
+
+
+def test_period_amplitude_definition():
+    """plen = trunc(sr / pitch) clamped to [1, W - 1]; unvoiced frames
+    take one sample."""
+    frames = torch.arange(1.0, 9.0).reshape(1, 2, 4)
+    amp = hopper_yin.period_amplitude(frames, torch.tensor([[0.0, 22050.0]]), 44100)
+    assert torch.allclose(amp, torch.tensor([[1.0, np.sqrt((25 + 36) / 2)]], dtype=torch.float32))
+    amp = hopper_yin.period_amplitude(frames, torch.tensor([[1.0, 1e9]]), 44100)
+    assert torch.allclose(amp, torch.tensor([[np.sqrt(14 / 3), 5.0]], dtype=torch.float32))
+
+
+@pytest.mark.parametrize(
+    "rows,frames,density,min_frames",
+    [(5, 700, 0.3, 8), (3, 777, 0.3, 1), (130, 100, 0.5, 4), (1, 33, 0.9, 8), (2, 1030, 0.05, 4)],
+)
+def test_k4_plain_matches_pallas_interpret(rows, frames, density, min_frames):
+    """T not a multiple of 32 or 512, R not a multiple of 128: equal bits."""
+    cand = np.random.default_rng(rows * frames).random((rows, frames)) < density
+    got = hopper_onsets.thin_onsets_hopper(torch.from_numpy(cand), min_frames)
+    ref = np.asarray(thin_onsets_pallas(jnp.asarray(cand), min_frames, interpret=True))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert ref.sum() > 0
+
+
+@pytest.mark.parametrize("min_interval,hop", [(0.05, 256), (0.05, 512), (0.01, 441)])
+def test_k4_plain_matches_jax_scan_path(min_interval, hop):
+    """detect_onsets_from_flux on the CPU takes the JAX scan (no Pallas):
+    the same mask and count; min_frames 8, 4 and 1."""
+    flux = np.abs(np.random.default_rng(hop).standard_normal((3, 2, 601))).astype(np.float32)
+    jm, jc = jtemporal.detect_onsets_from_flux(jnp.asarray(flux), hop, SR, 0.3, min_interval)
+    from sonido_sonar_tpu_torch.ops import temporal as ttemporal
+
+    m, c = ttemporal.detect_onsets_from_flux(torch.from_numpy(flux), hop, SR, 0.3, min_interval)
+    np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+
+
+def test_wrappers_take_leading_axes_as_rows():
+    """[2, 3, N] through K1, K2 (with and without the amplitude) and K4
+    equals the rows of [6, N], reshaped."""
+    x = torch.from_numpy(_pcm(6, 0.5, 9))
+    x3 = x.view(2, 3, -1)
+    mag6, aux6 = hopper_stft.stft_magnitude_hopper(x, 1024, 256, pre_emph=PRE)
+    mag3, aux3 = hopper_stft.stft_magnitude_hopper(x3, 1024, 256, pre_emph=PRE)
+    assert mag3.shape == (2, 3) + mag6.shape[1:]
+    assert torch.equal(mag3.reshape(mag6.shape), mag6)
+    assert all(torch.equal(aux3[k].reshape(6, -1), aux6[k]) for k in aux6)
+    for amp in (False, True):
+        y6 = hopper_yin.yin_pitch_hopper(x, 1024, 256, SR, 50.0, 500.0, with_period_amp=amp)
+        y3 = hopper_yin.yin_pitch_hopper(x3, 1024, 256, SR, 50.0, 500.0, with_period_amp=amp)
+        assert len(y3) == (4 if amp else 3)
+        assert all(q.shape == (2, 3, r.shape[1]) and torch.equal(q.reshape(r.shape), r)
+                   for q, r in zip(y3, y6))
+    cand = torch.from_numpy(np.random.default_rng(9).random((6, 300)) < 0.3)
+    k6 = hopper_onsets.thin_onsets_hopper(cand, 4)
+    assert torch.equal(hopper_onsets.thin_onsets_hopper(cand.view(2, 3, 300), 4).reshape(6, 300), k6)
+
+
+def test_k4_wrapper_raises_on_devices_without_a_kernel():
+    with pytest.raises(ValueError, match="no K4 kernel"):
+        hopper_onsets.thin_onsets_hopper(torch.empty((2, 64), dtype=torch.bool, device="meta"), 4)
