@@ -44,6 +44,32 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
  15. K2 with amplitude and K4 against their plain versions, timed
  16. one torch.profiler step each of the generator and the music paths:
      the device's busy share and its top kernels
+ 17. the banded DTW fill kernel (K5/K6/K7's counterpart) against its plain
+     version at the three TPU fills' geometries: [8, 2048, 12] band 64;
+     [1, 10335, 12] band 5167 (60 s chroma); [2, 10332, 1] band 5167 (fleet
+     energy series); and [2, 3000 x 2900, 1] band 20671 (a 60 s budget at
+     hop 128: rows too wide for shared memory, kept in the cost band);
+     after each, the backtrack kernel (K8's) against the plain backtrack on
+     the kernel's own band, exactly
+ 18. the stream-alignment path at full width: FleetMonitor (44.1 kHz,
+     1024/256), 64 streams x 60 s windows, 30 s budget, measure_batch 32,
+     refine=True; 48 streams carry the source delayed 0.1-3 s x 0.9, 16
+     (8 per sub-batch) an unrelated signal, so the 0.7 gate fails and DTW
+     runs in both sub-batches: launch counts (fill and backtrack >= 2),
+     every related stream within one hop of its lag, ms per measure_all
+     (median of 3), streams per card at a 10 s cadence, peak memory
+ 19. LatencyMonitor at 60 s / 30 s (B = 1): one measure through the gate,
+     one past it (the fill at B = 1); ms per measure()
+ 20. a 4-stream fleet (12 s, 3 s budget) and align_audio_files on the card
+     against the CPU: offsets and methods equal, scores within 1e-4
+ 21. fill and backtrack against their plain versions, timed at the fleet
+     geometry (B = 2), and the kernels at B = 32, the fleet's sub-batch,
+     with pairs 0, 24 (unrelated) and 31 of it held to the plain fill and
+     the plain backtrack (their offsets in the band pass 2^31 elements
+     from pair 21 on); the hybrid's host reads
+     under CUDA's sync debug mode (one for batched_hybrid_align, none for
+     batched_hybrid_align_device, same offsets and methods)
+ 22. one torch.profiler step of the fleet's measure_all
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -57,6 +83,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -228,6 +255,249 @@ def music_schema(b: int, n: int) -> dict:
 
 
 MUSIC_INTS = {"chord_index": torch.int32, "onset_mask": torch.bool}
+
+
+ALIGN_SECONDS, ALIGN_BUDGET = 60, 30      # the monitors' defaults: 60 s windows, 30 s budget
+FLEET_STREAMS, FLEET_BATCH = 64, 32
+# streams whose cdn is an unrelated signal: 8 in each sub-batch of 32, so
+# the 0.7 gate fails and the banded DTW runs in both
+UNRELATED = tuple(range(24, 32)) + tuple(range(56, 64))
+CADENCE_S = 10.0                          # a production monitor's measuring interval
+
+
+def run_alignment(card: str, dev: torch.device) -> dict:
+    """Phases 17-22: the DTW kernels against their plain versions at the
+    TPU kernels' geometries, FleetMonitor and LatencyMonitor at full
+    width, the card against the CPU, timings and a profile. Returns the
+    numbers of the kernels line."""
+    from sonido_sonar_tpu_torch import FleetMonitor, LatencyMonitor
+    from sonido_sonar_tpu_torch.config.config import FeatureConfig
+    from sonido_sonar_tpu_torch.extractors.alignment import AlignmentExtractor
+    from sonido_sonar_tpu_torch.ops.stats import hopper_backtrack, hopper_dtw
+    from sonido_sonar_tpu_torch.ops.stats.batched_alignment import (
+        batched_hybrid_align,
+        batched_hybrid_align_device,
+    )
+    from sonido_sonar_tpu_torch.ops.temporal import short_time_energy
+    from sonido_sonar_tpu_torch.utils import parity
+
+    fill, fill_plain = hopper_dtw.fill_banded_hopper, hopper_dtw.fill_banded_plain
+    walk, walk_plain = hopper_backtrack.backtrack_banded_hopper, hopper_backtrack.backtrack_banded_plain
+    rng = np.random.default_rng(SEED + 10)
+    n_win = ALIGN_SECONDS * SR
+    n_chroma = n_win // HOP                          # 10,335: bench.py:303
+    band = int(ALIGN_BUDGET * SR) // HOP             # 5,167: the 30 s budget at hop 256
+    errs = {}
+
+    def hold_dtw(q, r, band, what):
+        n, m = q.shape[1], r.shape[1]
+        cost = fill(q, r, band, n, m)
+        plain = fill_plain(q, r, band, n, m)
+        torch.cuda.synchronize()
+        e = require(parity.check_fill(np32(cost), np32(plain)), f"DTW fill vs plain, {what}")
+        del plain
+        got = walk(cost, band, n, m)
+        torch.cuda.synchronize()
+        want = walk_plain(cost, band, n, m)
+        e.update(require(parity.check_backtrack([np32(t) for t in got], [np32(t) for t in want]),
+                             f"DTW backtrack vs plain on the kernel's band, {what}"))
+        log(f"[DTW {what}] path lengths {got[3].tolist()}")
+        return e
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    # phase 17: the three TPU fills' geometries (K6, K7, K5) and K8 after each
+    q6 = rand(8, 2048, 12)
+    errs["K6"] = hold_dtw(q6, torch.roll(q6, 5, 1).contiguous(), 64, "K6 [8, 2048, 12] band 64")
+    q7 = rand(1, n_chroma, 12)
+    errs["K7"] = hold_dtw(q7, torch.roll(q7, 7, 1).contiguous(), band,
+                          f"K7 [1, {n_chroma}, 12] band {band}")
+    lags = rng.integers(int(0.1 * SR), 3 * SR, FLEET_STREAMS)
+    src, cdn = parity.alignment_streams(FLEET_STREAMS, ALIGN_SECONDS, SR, lags, SEED + 11,
+                                        unrelated=UNRELATED, device=dev)
+    e_src = short_time_energy(src, WINDOW, HOP)[..., None].contiguous()
+    e_cdn = short_time_energy(cdn, WINDOW, HOP)[..., None].contiguous()
+    n_e = e_src.shape[1]
+    pairs = [0, UNRELATED[0]]                         # one related pair, one unrelated
+    errs["K5"] = hold_dtw(e_src[pairs].contiguous(), e_cdn[pairs].contiguous(), band,
+                          f"K5 energies [2, {n_e}, 1] band {band}")
+    # a band whose two rows do not fit in shared memory (a 60 s budget at
+    # hop 128): the fill keeps its rows in the cost band itself
+    wide = int(60 * SR) // 128
+    qw, rw = rand(2, 3000, 1), rand(2, 2900, 1)
+    errs["wide"] = hold_dtw(qw, rw, wide, f"[2, 3000 x 2900, 1] band {wide}")
+    log(f"DTW fill at [2, 3000 x 2900, 1] band {wide} (rows in global memory): "
+        f"{cuda_ms(lambda: fill(qw, rw, wide, 3000, 2900), 2):.2f} ms [{card}]")
+    del q6, q7, qw, rw
+    torch.cuda.empty_cache()
+
+    # phase 18: FleetMonitor at full width (the slice's main path)
+    fcfg = FeatureConfig(sample_rate=SR, window_size=WINDOW, hop_size=HOP)
+    fleet = FleetMonitor(fcfg, n_streams=FLEET_STREAMS, window_seconds=ALIGN_SECONDS,
+                         max_lag_seconds=ALIGN_BUDGET, measure_batch=FLEET_BATCH, device=dev)
+    fleet.push_source_all(src)
+    fleet.push_cdn_all(cdn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fill.launches = walk.launches = 0
+    res = fleet.measure_all(refine=True)
+    torch.cuda.synchronize()
+    launches = {"fill": fill.launches, "backtrack": walk.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"fleet measure_all launches: {launches}")
+    if launches["fill"] < 2 or launches["backtrack"] < 2:
+        raise AssertionError(f"the fleet did not run the DTW kernels in both sub-batches: {launches}")
+    related = [i for i in range(FLEET_STREAMS) if i not in UNRELATED]
+    off = np.array([abs(res[i].latency_s - lags[i] / SR) for i in related])
+    methods = {}
+    for m in res:
+        methods[m.method] = methods.get(m.method, 0) + 1
+    log(f"[fleet] {len(related)} related streams: max |latency - injected lag| "
+        f"{off.max() * 1e3:.3f} ms (one hop is {1e3 * HOP / SR:.3f} ms); methods {methods}; "
+        f"confidence related min {min(res[i].confidence for i in related):.3f}, unrelated max "
+        f"{max(res[i].confidence for i in UNRELATED):.3f}")
+    if not (off <= HOP / SR).all():
+        bad = [related[k] for k in np.nonzero(off > HOP / SR)[0]]
+        raise AssertionError(f"fleet: streams {bad} beyond one hop of their lag")
+    if not all(np.isfinite([m.latency_s, m.confidence, m.similarity]).all() for m in res):
+        raise AssertionError("fleet: non-finite measurements")
+    step_s = timed_steps(lambda: fleet.measure_all(refine=True), 3)
+    fleet_ms = 1e3 * float(np.median(step_s))
+    log(f"fleet measure_all {FLEET_STREAMS} x {ALIGN_SECONDS} s ({ALIGN_BUDGET} s budget, refine): "
+        f"{fleet_ms:.2f} ms median of 3 ({', '.join(f'{1e3 * s:.2f}' for s in step_s)}); "
+        f"{FLEET_STREAMS * CADENCE_S / (fleet_ms / 1e3):.0f} streams per card at a "
+        f"{CADENCE_S:.0f} s cadence; peak device memory {peak_gib:.2f} GiB [{card}]")
+
+    # phase 19: LatencyMonitor at B = 1, one measure through the gate, one past it
+    mon_ms = {}
+    passing = [i for i in related if res[i].method.startswith("energy_correlation")]
+    failing = [i for i in UNRELATED if not res[i].method.startswith("energy_correlation")]
+    if not passing or not failing:
+        raise AssertionError(f"fleet: no stream on each side of the 0.7 gate ({methods})")
+    for label, row in (("gate passes", passing[0]), ("gate fails", failing[0])):
+        mon = LatencyMonitor(fcfg, window_seconds=ALIGN_SECONDS, max_lag_seconds=ALIGN_BUDGET,
+                             device=dev)
+        mon.push_source(src[row])
+        mon.push_cdn(cdn[row])
+        fill.launches = 0
+        m = mon.measure(refine=True)
+        steps = timed_steps(lambda: mon.measure(refine=True), 3)
+        mon_ms[label] = 1e3 * float(np.median(steps))
+        truth = ("the cdn is unrelated to the source" if row in UNRELATED
+                 else f"injected {lags[row] / SR:+.5f} s")
+        log(f"[LatencyMonitor, {label}] {m.method}, latency {m.latency_s:+.5f} s ({truth}), "
+            f"confidence {m.confidence:.3f}, fill launches "
+            f"{fill.launches}; {mon_ms[label]:.2f} ms per measure() [{card}]")
+        if (row in UNRELATED) != (fill.launches > 0) or m.method != res[row].method:
+            raise AssertionError(f"LatencyMonitor ({label}): {m.method}, the fill ran "
+                                 f"{fill.launches} times; the fleet measured {res[row].method}")
+        if row not in UNRELATED and abs(m.latency_s - lags[row] / SR) > HOP / SR:
+            raise AssertionError(f"LatencyMonitor: latency {m.latency_s} for lag {lags[row] / SR}")
+
+    # phase 20: card against CPU at a small size
+    small_lags = [int(0.3 * SR), -int(0.45 * SR), int(1.1 * SR), 0]
+    s_src, s_cdn = parity.alignment_streams(4, 12, SR, small_lags, SEED + 12, unrelated=(3,))
+    kw = dict(n_streams=4, window_seconds=12.0, max_lag_seconds=3.0, measure_batch=4)
+    per_device = []
+    for d in (dev, torch.device("cpu")):
+        f = FleetMonitor(fcfg, device=d, **kw)
+        f.push_source_all(s_src)
+        f.push_cdn_all(s_cdn)
+        ext = AlignmentExtractor(fcfg, max_lag_seconds=2.0)
+        a = ext.align_audio_files(s_src[0, : 5 * SR].to(d), s_cdn[0, : 5 * SR].to(d), SR)
+        per_device.append((f.measure_all(refine=True), a))
+    (card_res, card_a), (cpu_res, cpu_a) = per_device
+    worst = 0.0
+    for i, (c, h) in enumerate(zip(card_res, cpu_res)):
+        if c.method != h.method or abs(c.latency_s - h.latency_s) > 1e-6:
+            raise AssertionError(f"fleet card vs CPU, stream {i}: {c} != {h}")
+        worst = max(worst, abs(c.confidence - h.confidence), abs(c.similarity - h.similarity))
+    for key in ("offset_confidence", "alignment_similarity", "alignment_quality"):
+        worst = max(worst, abs(getattr(card_a, key) - getattr(cpu_a, key)))
+    if card_a.temporal_offset != cpu_a.temporal_offset or card_a.method != cpu_a.method:
+        raise AssertionError(f"align_audio_files card vs CPU: {card_a.temporal_offset} "
+                             f"!= {cpu_a.temporal_offset}")
+    if worst > parity.ALIGN_SCORE_ATOL:
+        raise AssertionError(f"alignment card vs CPU: scores differ by {worst:.3g}")
+    log(f"[alignment card vs CPU] 4-stream fleet (12 s, 3 s budget; methods "
+        f"{[m.method for m in card_res]}) and align_audio_files: offsets and methods equal, "
+        f"scores within {worst:.2e}")
+
+    # phase 21: kernel and plain timings (CUDA events), fleet geometry
+    times = {}
+    qe, re_ = e_src[pairs].contiguous(), e_cdn[pairs].contiguous()
+    cost2 = fill(qe, re_, band, n_e, n_e)
+    for name, kern, plain, args in (
+        ("fill", fill, fill_plain, (qe, re_, band, n_e, n_e)),
+        ("backtrack", walk, walk_plain, (cost2, band, n_e, n_e)),
+    ):
+        p1 = cuda_ms(lambda: plain(*args), 1)
+        q1 = cuda_ms(lambda: kern(*args), 3)
+        q2 = cuda_ms(lambda: kern(*args), 3)
+        p2 = cuda_ms(lambda: plain(*args), 1)
+        times[name] = ((q1 + q2) / 2, (p1 + p2) / 2)
+        log(f"DTW {name} at B=2, n={n_e}, band {band}: kernel {q1:.3f} / {q2:.3f} ms, "
+            f"plain {p1:.1f} / {p2:.1f} ms [{card}]")
+    del cost2
+    q32, r32 = e_src[:FLEET_BATCH].contiguous(), e_cdn[:FLEET_BATCH].contiguous()
+    fill(q32, r32, band, n_e, n_e)
+    f32 = cuda_ms(lambda: fill(q32, r32, band, n_e, n_e), 2)
+    cost32 = fill(q32, r32, band, n_e, n_e)
+    w32 = cuda_ms(lambda: walk(cost32, band, n_e, n_e), 3)
+    log(f"DTW at B={FLEET_BATCH} (one fleet sub-batch, band {band}): fill {f32:.2f} ms, "
+        f"backtrack {w32:.2f} ms, cost band {cost32.numel() * 4 / 1e9:.2f} GB [{card}]")
+    # the sub-batch the fleet sends, checked: from pair 21 on a pair's
+    # offset in the band passes 2^31 elements; pair 24 is unrelated (its
+    # answer is the DTW's)
+    rows = [0, UNRELATED[0], FLEET_BATCH - 1]
+    sel = torch.tensor(rows, device=dev)
+    plain = fill_plain(q32[sel].contiguous(), r32[sel].contiguous(), band, n_e, n_e)
+    e32 = require(parity.check_fill(np32(cost32[sel]), np32(plain)),
+                  f"DTW fill vs plain, pairs {rows} of [{FLEET_BATCH}, {n_e}, 1] band {band}")
+    del plain
+    got = walk(cost32, band, n_e, n_e)
+    torch.cuda.synchronize()
+    want = walk_plain(cost32[sel].contiguous(), band, n_e, n_e)
+    e32.update(require(parity.check_backtrack([np32(t[sel]) for t in got], [np32(t) for t in want]),
+                       f"DTW backtrack vs plain, pairs {rows} of the B={FLEET_BATCH} band"))
+    errs[f"K5 B={FLEET_BATCH}"] = e32
+    log(f"[DTW B={FLEET_BATCH}] pairs {rows} held to plain: fill max rel "
+        f"{e32['fill_max_rel']:.3g}, path lengths {got[3][sel].tolist()}")
+    del cost32, q32, r32, got, want
+    torch.cuda.empty_cache()
+
+    # the hybrid's host reads, counted by CUDA's sync debug mode: one (the
+    # gate vector) for batched_hybrid_align, none for the _device variant
+    e2 = (e_src[pairs, :, 0].contiguous(), e_cdn[pairs, :, 0].contiguous())
+    max_lag = int(ALIGN_BUDGET * SR) // HOP
+    syncs = {}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for name, fn in (("device", batched_hybrid_align_device), ("gated", batched_hybrid_align)):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                hyb = fn(*e2, max_lag, HOP, SR)
+                hyb = {k: v for k, v in hyb.items() if k != "topk_lags"}
+            syncs[name] = (sum("synchroniz" in str(w.message) for w in caught), hyb)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    dev_out, gated_out = syncs["device"][1], syncs["gated"][1]
+    log(f"[hybrid host reads] batched_hybrid_align_device {syncs['device'][0]}, "
+        f"batched_hybrid_align {syncs['gated'][0]}; methods {gated_out['method'].tolist()}")
+    if syncs["device"][0] != 0 or syncs["gated"][0] != 1:
+        raise AssertionError(f"hybrid host reads: device {syncs['device'][0]} (expected 0), "
+                             f"gated {syncs['gated'][0]} (expected 1)")
+    if not (torch.equal(dev_out["offset_samples"], gated_out["offset_samples"])
+            and torch.equal(dev_out["method"], gated_out["method"])):
+        raise AssertionError("batched_hybrid_align_device and batched_hybrid_align differ")
+
+    profile_step("fleet measure_all", lambda: fleet.measure_all(refine=True))  # phase 22
+    fill_err = max(e["fill_max_abs"] for e in errs.values())
+    walk_err = max(e["path_cost"] for e in errs.values())
+    return {"launches": launches, "times": times, "fill_err": fill_err, "walk_err": walk_err,
+            "fleet_ms": fleet_ms}
 
 
 def main() -> int:
@@ -573,6 +843,10 @@ def main() -> int:
     profile_step("music program", music_step)
     log(f"step times: main path {ms:.2f}, generator news {gen_ms:.2f}, "
         f"music program {music_ms:.2f} ms [{card}]")
+    del clips, full
+    torch.cuda.empty_cache()
+
+    align = run_alignment(card, dev)                # phases 17-22
 
     for mod in ("jax", "sonido_sonar_tpu"):
         if mod in sys.modules:
@@ -598,6 +872,16 @@ def main() -> int:
          "replaces": "sonido_sonar_tpu/ops/pallas_onsets.py:60",
          "launches": music_launches["K4"], "max_abs_err": 0.0,
          "ms": times["K4"][0], "plain_ms": times["K4"][1]},
+        {"name": "K5/K6/K7 dtw_fill_banded", "route": "cuda",
+         "source": "sonido_sonar_tpu_torch/csrc/dtw.cu",
+         "replaces": "sonido_sonar_tpu/ops/stats/pallas_dtw.py:297, :439, :173",
+         "launches": align["launches"]["fill"], "max_abs_err": align["fill_err"],
+         "ms": align["times"]["fill"][0], "plain_ms": align["times"]["fill"][1]},
+        {"name": "K8 dtw_backtrack_banded", "route": "cuda",
+         "source": "sonido_sonar_tpu_torch/csrc/dtw.cu",
+         "replaces": "sonido_sonar_tpu/ops/stats/pallas_backtrack.py:150",
+         "launches": align["launches"]["backtrack"], "max_abs_err": align["walk_err"],
+         "ms": align["times"]["backtrack"][0], "plain_ms": align["times"]["backtrack"][1]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,5 +17,17 @@ Entry points of the ported slices:
     from sonido_sonar_tpu_torch.fingerprint import FingerprintGenerator
     fps = FingerprintGenerator().generate_fingerprints_batch(audios)
 
+    from sonido_sonar_tpu_torch import FleetMonitor
+    fleet = FleetMonitor(FeatureConfig(44100, 1024, 256), n_streams=64,
+                         device="cuda")
+    fleet.push_source_all(src)    # [64, L] chunks, tensors or arrays
+    fleet.push_cdn_all(cdn)
+    latencies = fleet.measure_all()
+
 This package never imports JAX or `sonido_sonar_tpu`.
 """
+from sonido_sonar_tpu_torch.monitor import (  # noqa: F401,E402
+    FleetMonitor,
+    LatencyMeasurement,
+    LatencyMonitor,
+)

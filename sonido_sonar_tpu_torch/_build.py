@@ -10,10 +10,13 @@ The build runs at first use, from this package's sources only, into
 `_build/` beside this file (git-ignored). The library's name carries a
 hash of the sources and flags, so an edited source is rebuilt and a
 stale library is never loaded. Nothing falls back: a missing nvcc or a
-failed build raises.
+failed build raises `KernelError`.
 
 Each C entry point launches on the stream it is given and returns
-`cudaGetLastError()` after the launch; `call` raises on a nonzero code.
+`cudaGetLastError()` after the launch; `call` raises `KernelError` on a
+nonzero code. Code that degrades on bad data (the alignment handlers)
+re-raises `KernelError`, so a kernel fault is never taken for a data
+error.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("csrc/stft.cu", "csrc/yin.cu", "csrc/onsets.cu")
+SOURCES = ("csrc/stft.cu", "csrc/yin.cu", "csrc/onsets.cu", "csrc/dtw.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,7 +50,15 @@ _SIGNATURES = {
     "sonido_yin_pitch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
     # cand, kept, rows, frames, min_frames, stream
     "sonido_thin_onsets": (_P, _P, _I, _I, _I, _P),
+    # q, r, cost, batch, n, m, d, band, stream
+    "sonido_dtw_fill_banded": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # cost, qs, rs, cs, length, batch, n, m, band, stream
+    "sonido_dtw_backtrack_banded": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
+
+
+class KernelError(RuntimeError):
+    """A CUDA kernel could not be built, loaded or launched."""
 
 
 @dataclass(frozen=True)
@@ -63,7 +74,7 @@ def find_nvcc() -> str:
             return str(Path(root) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (set CUDA_HOME): the CUDA kernels of "
             "sonido_sonar_tpu_torch are built from csrc/ at first use"
         )
@@ -97,12 +108,15 @@ def build() -> tuple:
         seconds = time.perf_counter() - t0
         if res.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
+            raise KernelError(
                 f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
             )
         log_path.write_text(res.stdout + res.stderr)
         os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
-    lib = ctypes.CDLL(str(lib_path))
+    try:
+        lib = ctypes.CDLL(str(lib_path))
+    except OSError as e:
+        raise KernelError(f"cannot load {lib_path}: {e}") from e
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -119,4 +133,4 @@ def call(name: str, *args) -> None:
     code = getattr(lib, name)(*args)
     if code != 0:
         msg = lib.sonido_error_string(code).decode()
-        raise RuntimeError(f"{name} failed with CUDA error {code}: {msg}")
+        raise KernelError(f"{name} failed with CUDA error {code}: {msg}")

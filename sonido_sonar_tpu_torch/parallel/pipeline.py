@@ -13,6 +13,10 @@ Counterpart of `sonido_sonar_tpu/parallel/pipeline.py`:
   in the voice-quality chain).
 - `batched_music_extractor_features`: the music extractor's payload (K1
   twice, K4 three times).
+- The alignment half: `batched_pair_alignment`, `batched_pair_dtw` (the
+  banded DTW fill and backtrack kernels), `batched_refine_offsets`,
+  `batched_phat_candidates` and `batched_phat_global` (GCC-PHAT, plain
+  `torch.fft` on every device).
 On a CPU tensor every kernel runs its plain PyTorch version.
 """
 
@@ -267,3 +271,141 @@ def batched_music_extractor_features(
     )
     out["tonal_centroid"] = out["spectral_centroid"][..., :t] * voicing
     return out
+
+
+# ---------------------------------------------------------------------
+# Stream alignment: batched pair alignment and GCC-PHAT (plain PyTorch
+# on every device, as these are XLA in JAX; the banded DTW fill and
+# backtrack are the kernels)
+# ---------------------------------------------------------------------
+
+def batched_pair_alignment(
+    query_energy: torch.Tensor, reference_energy: torch.Tensor, max_lag: int
+) -> Dict[str, torch.Tensor]:
+    """Source/CDN alignment over energy series [B, T]: per-pair peak lag
+    in frames (positive = reference delayed), peak correlation and SNR."""
+    from sonido_sonar_tpu_torch.ops.stats.alignment import _ncc_arrays
+    from sonido_sonar_tpu_torch.ops.stats.correlation import _peak_metrics
+
+    t1, t2 = query_energy.shape[-1], reference_energy.shape[-1]
+    corr = _ncc_arrays(query_energy, reference_energy, max_lag, t1, t2)
+    peak_corr, peak_lag, _idx, _p, snr, *_rest = _peak_metrics(corr, max_lag, t1, t2)
+    return {"lag_frames": -peak_lag, "peak_correlation": peak_corr, "snr": snr}
+
+
+def batched_pair_dtw(
+    query_feats: torch.Tensor, reference_feats: torch.Tensor, band: int
+) -> Dict[str, torch.Tensor]:
+    """Banded DTW over feature-sequence pairs [B, T, D]: one fill and one
+    backtrack launch over the batch (the kernels on a CUDA tensor), then
+    per-pair normalized distance and the median interior displacement in
+    frames (positive = reference delayed)."""
+    from sonido_sonar_tpu_torch.ops.stats.batched_alignment import masked_median
+    from sonido_sonar_tpu_torch.ops.stats.hopper_backtrack import backtrack_banded_hopper
+    from sonido_sonar_tpu_torch.ops.stats.hopper_dtw import fill_banded_hopper
+
+    n, m = query_feats.shape[1], reference_feats.shape[1]
+    costs = fill_banded_hopper(query_feats.to(torch.float32).contiguous(),
+                               reference_feats.to(torch.float32).contiguous(), band, n, m)
+    qs, rs, _, lengths = backtrack_banded_hopper(costs, band, n, m)
+    dists = costs[:, n, m - n + band] / torch.clamp_min(lengths, 1).to(torch.float32)
+    idx = torch.arange(qs.shape[-1], device=qs.device)
+    interior = ((idx < lengths.to(torch.int64)[:, None]) & (qs > 0) & (rs > 0)
+                & (qs < n - 1) & (rs < m - 1))
+    offsets = masked_median((rs - qs).to(torch.float32), interior)
+    offsets = torch.where(torch.isnan(offsets), 0.0, offsets)
+    return {"distance": dists, "offset_frames": offsets, "path_length": lengths}
+
+
+def _pow2_at_least(n: int) -> int:
+    k = 1
+    while k < n:
+        k <<= 1
+    return k
+
+
+def _windows(x: torch.Tensor, starts: torch.Tensor, length: int) -> torch.Tensor:
+    """x [B, N], starts [B, ...] -> x[b, s : s + length] as [B, ..., length]."""
+    idx = starts.to(torch.int64)[..., None] + torch.arange(length, device=x.device)
+    flat = idx.reshape(idx.shape[0], -1)
+    return torch.gather(x, 1, flat).reshape(idx.shape)
+
+
+def _phat_cc(q: torch.Tensor, r: torch.Tensor, n_fft: int, max_lag: int) -> torch.Tensor:
+    """Energy-weighted GCC-PHAT over lags -max_lag..max_lag: whitened
+    cross-spectrum with a 1e-3 * mean soft floor, so bins without
+    cross-power carry no random unit phases."""
+    from sonido_sonar_tpu_torch.ops.stats.correlation import lag_window
+
+    cross = torch.fft.rfft(q, n=n_fft, dim=-1) * torch.conj(torch.fft.rfft(r, n=n_fft, dim=-1))
+    mag = torch.abs(cross)
+    delta = 1e-3 * torch.mean(mag, dim=-1, keepdim=True)
+    phat = cross / torch.clamp_min(mag + delta, 1e-12)
+    return lag_window(torch.fft.irfft(phat, n=n_fft, dim=-1), n_fft, max_lag)
+
+
+def _phat_geometry(n1: int, n2: int, hop_size: int, search_hops: int, max_offset_samples: int):
+    if max_offset_samples <= 0:
+        max_offset_samples = min(n1, n2) // 4
+    length = min(n1, n2) - max_offset_samples
+    if length <= 0:
+        raise ValueError("max_offset_samples leaves no analysis window")
+    max_lag = max(search_hops * hop_size, 8)
+    return max_offset_samples, length, max_lag, _pow2_at_least(length + max_lag)
+
+
+def batched_refine_offsets(
+    query_pcm: torch.Tensor, reference_pcm: torch.Tensor, coarse_offsets_seconds: torch.Tensor,
+    sample_rate: int, hop_size: int = 256, search_hops: int = 24, max_offset_samples: int = 0,
+) -> torch.Tensor:
+    """Exact-sample refinement of [B] coarse offsets (seconds, positive =
+    reference delayed) by GCC-PHAT over +-search_hops hops, [B, N1] x
+    [B, N2] PCM -> [B] float32 seconds. |coarse| is bounded by
+    `max_offset_samples` (default N // 4)."""
+    n1, n2 = query_pcm.shape[-1], reference_pcm.shape[-1]
+    max_off, length, max_lag, n_fft = _phat_geometry(n1, n2, hop_size, search_hops,
+                                                     max_offset_samples)
+    coarse = torch.round(coarse_offsets_seconds.to(torch.float32) * sample_rate).to(torch.int32)
+    coarse = torch.clamp(coarse, -max_off, max_off)
+    q = _windows(query_pcm.to(torch.float32), torch.clamp(-coarse, 0, n1 - length), length)
+    r = _windows(reference_pcm.to(torch.float32), torch.clamp(coarse, 0, n2 - length), length)
+    window = _phat_cc(q, r, n_fft, max_lag)
+    residual = -(torch.argmax(window, dim=-1).to(torch.int32) - max_lag)
+    return (coarse + residual).to(torch.float32) / float(sample_rate)
+
+
+def batched_phat_candidates(
+    query_pcm: torch.Tensor, reference_pcm: torch.Tensor, cand_offsets_seconds: torch.Tensor,
+    sample_rate: int, hop_size: int = 256, search_hops: int = 24, max_offset_samples: int = 0,
+) -> tuple:
+    """GCC-PHAT refinement and whitened-peak strength of K candidate
+    offsets per pair: [B, N1] x [B, N2] PCM, [B, K] seconds ->
+    (refined [B, K] seconds, peaks [B, K])."""
+    n1, n2 = query_pcm.shape[-1], reference_pcm.shape[-1]
+    max_off, length, max_lag, n_fft = _phat_geometry(n1, n2, hop_size, search_hops,
+                                                     max_offset_samples)
+    coarse = torch.round(cand_offsets_seconds.to(torch.float32) * sample_rate).to(torch.int32)
+    coarse = torch.clamp(coarse, -max_off, max_off)
+    q = _windows(query_pcm.to(torch.float32), torch.clamp(-coarse, 0, n1 - length), length)
+    r = _windows(reference_pcm.to(torch.float32), torch.clamp(coarse, 0, n2 - length), length)
+    window = _phat_cc(q, r, n_fft, max_lag)
+    idx = torch.argmax(window, dim=-1)
+    peaks = torch.gather(window, -1, idx[..., None])[..., 0]
+    residual = -(idx.to(torch.int32) - max_lag)
+    return (coarse + residual).to(torch.float32) / float(sample_rate), peaks
+
+
+def batched_phat_global(
+    query_pcm: torch.Tensor, reference_pcm: torch.Tensor, sample_rate: int, max_lag_samples: int
+) -> tuple:
+    """Whitened full-range GCC-PHAT scan per pair, [B, N] x 2 ->
+    ([B] offset seconds, [B] peak); positive offset = reference delayed."""
+    length = min(query_pcm.shape[-1], reference_pcm.shape[-1])
+    max_lag = min(max_lag_samples, length - 1)
+    n_fft = _pow2_at_least(length + max_lag)
+    window = _phat_cc(query_pcm.to(torch.float32)[..., :length],
+                      reference_pcm.to(torch.float32)[..., :length], n_fft, max_lag)
+    idx = torch.argmax(window, dim=-1)
+    peaks = torch.gather(window, -1, idx[..., None])[..., 0]
+    offsets = -(idx.to(torch.int32) - max_lag).to(torch.float32) / float(sample_rate)
+    return offsets, peaks

@@ -430,3 +430,95 @@ def check_extracted(
             g, r = g[mask], r[mask]
         _close(key, g, r, *tol, errors, failures)
     return errors, failures
+
+
+# Banded DTW fill (K5/K6/K7's counterpart against its plain version on
+# the card; the plain version against JAX's fills on the CPU). Both keep
+# BIG = 3.4e38 / 4 as the finite "no path" sentinel, so the cells at or
+# above DTW_SENTINEL must coincide exactly. A finite cell is a sum of up
+# to n + m local distances taken in another order (the kernel's block
+# scan, the plain log-step scan, JAX's associative scan and Pallas
+# kernels): ~2e-7 of the largest cell at n ~ 300 (measured); the bound is
+# the JAX kernel tests' (tests/test_pallas_dtw.py: rel 1e-5 of the max).
+DTW_SENTINEL = 1e37
+DTW_FILL_REL = 1e-5
+# Backtrack on one shared band: the walk only compares cells, so the
+# path and its length are exact; the path costs are float32 differences
+# of the same cells (equal bits on one band; the bound allows another
+# rounding of the same difference).
+DTW_PATH_COST_RTOL = 1e-5
+DTW_PATH_COST_ATOL = 1e-5
+# Alignment scores (confidence, similarity, quality): float32 sums along
+# paths and lags in another order, ~1e-6 (measured); 1e-4 is the JAX
+# tests' bound between the batched and per-pair scorers
+# (tests/test_batched_alignment.py:169-170). Offsets (integers) and the
+# winning method must be equal.
+ALIGN_SCORE_ATOL = 1e-4
+
+
+def check_fill(got, ref) -> Report:
+    """A banded cost fill [.., n+1, w] against a reference: sentinel
+    masks equal, finite cells within DTW_FILL_REL of the largest."""
+    g = np.asarray(got, np.float64)
+    r = np.asarray(ref, np.float64)
+    if g.shape != r.shape:
+        return {}, [f"fill: shape {g.shape} != {r.shape}"]
+    failures = []
+    sent_g, sent_r = g >= DTW_SENTINEL, r >= DTW_SENTINEL
+    mismatch = int((sent_g != sent_r).sum())
+    finite = ~sent_r & ~sent_g
+    scale = float(np.abs(r[finite]).max(initial=0.0))
+    max_abs = float(np.abs(g - r)[finite].max(initial=0.0))
+    rel = max_abs / max(scale, 1e-30)
+    if mismatch:
+        failures.append(f"fill: {mismatch} cells differ in their sentinel mask")
+    if not np.isfinite(g).all():
+        failures.append("fill: non-finite cells")
+    if rel > DTW_FILL_REL:
+        failures.append(f"fill: finite cells off by {rel:.3g} of the max (limit {DTW_FILL_REL})")
+    return {"fill_max_abs": max_abs, "fill_max_rel": rel,
+            "fill_sentinel_mismatch": float(mismatch)}, failures
+
+
+def check_backtrack(got, ref) -> Report:
+    """(qs, rs, cs, length) against a reference on the same band: qs, rs
+    and length equal, cs within DTW_PATH_COST_RTOL/ATOL."""
+    errors: Dict[str, float] = {}
+    failures: List[str] = []
+    for name, g, r in zip(("qs", "rs", "length"), (got[0], got[1], got[3]),
+                          (ref[0], ref[1], ref[3])):
+        g, r = np.asarray(g), np.asarray(r)
+        bad = int((g != r).sum()) if g.shape == r.shape else -1
+        errors[f"{name}_differ"] = float(bad)
+        if bad:
+            failures.append(f"backtrack {name}: {bad} entries differ (shapes {g.shape}, {r.shape})")
+    _close("path_cost", got[2], ref[2], DTW_PATH_COST_RTOL, DTW_PATH_COST_ATOL, errors, failures)
+    return errors, failures
+
+
+def alignment_streams(n_streams: int, seconds: float, sample_rate: int, lags_samples,
+                      seed: int, gain: float = 0.9, unrelated=(), device="cpu"):
+    """(source [N, L], cdn [N, L]) float32 test streams on `device`: each
+    source row is white noise (sigma 0.1) under a piecewise-constant
+    envelope of 6 segments per second drawn from [0.1, 1) (the JAX
+    bench's monitor streams, bench.py:509-556); its cdn row is the source
+    delayed by lags_samples[i] samples (zeros before) times `gain`, except
+    for the rows named in `unrelated`, whose cdn is another seeded signal
+    of the same kind. Drawn from numpy's generator seeded with `seed`."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sample_rate)
+    seg = max(int(6 * seconds), 1)
+    env = np.repeat(rng.uniform(0.1, 1.0, (n_streams, seg)), -(-n // seg), axis=1)[:, :n]
+    src = (rng.standard_normal((n_streams, n), dtype=np.float32) * 0.1 * env).astype(np.float32)
+    cdn = np.zeros_like(src)
+    for i, lag in enumerate(lags_samples):
+        lag = int(lag)
+        if lag >= 0:
+            cdn[i, lag:] = src[i, : n - lag]
+        else:
+            cdn[i, :lag] = src[i, -lag:]
+    cdn *= np.float32(gain)
+    for i in unrelated:
+        env_u = np.repeat(rng.uniform(0.1, 1.0, seg), -(-n // seg))[:n]
+        cdn[i] = (rng.standard_normal(n, dtype=np.float32) * 0.1 * env_u).astype(np.float32)
+    return torch.from_numpy(src).to(device), torch.from_numpy(cdn).to(device)

@@ -195,7 +195,7 @@ def test_build_command_targets_hopper(tmp_path, monkeypatch):
     assert [c for c in cmd if c.endswith(".cu")] == [
         str(_build._PKG / s) for s in _build.SOURCES
     ]
-    assert {"csrc/stft.cu", "csrc/yin.cu", "csrc/onsets.cu"} == set(_build.SOURCES)
+    assert {"csrc/stft.cu", "csrc/yin.cu", "csrc/onsets.cu", "csrc/dtw.cu"} == set(_build.SOURCES)
     assert all((_build._PKG / s).is_file() for s in _build.SOURCES)
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -203,12 +203,14 @@ def test_build_command_targets_hopper(tmp_path, monkeypatch):
     assert sigs["sonido_yin_pitch"][:4] == (P, P, P, P)  # sig, pitch, conf, amp (nullable)
     assert sigs["sonido_yin_pitch"][-1] == P and len(sigs["sonido_yin_pitch"]) == 15
     assert sigs["sonido_thin_onsets"] == (P, P, I, I, I, P)
+    assert sigs["sonido_dtw_fill_banded"] == (P, P, P, I, I, I, I, I, P)
+    assert sigs["sonido_dtw_backtrack_banded"] == (P, P, P, P, P, I, I, I, I, P)
     sources = "".join((_build._PKG / s).read_text() for s in _build.SOURCES)
     for name, argtypes in sigs.items():
         decl = sources[sources.index(f'extern "C" int {name}('):]
         decl = decl[: decl.index(")")]
         assert decl.count(",") + 1 == len(argtypes), name
-        assert F in argtypes or name == "sonido_thin_onsets"
+        assert F in argtypes or name.startswith(("sonido_thin_onsets", "sonido_dtw_"))
     assert len(_build.source_hash()) == 16 and _build.source_hash() == _build.source_hash()
     nvcc = tmp_path / "bin" / "nvcc"
     nvcc.parent.mkdir()
