@@ -70,8 +70,34 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
      under CUDA's sync debug mode (one for batched_hybrid_align, none for
      batched_hybrid_align_device, same offsets and methods)
  22. one torch.profiler step of the fleet's measure_all
+Phases 23-27 run right after phase 8, while the B=128 x 30 s PCM is on
+the card:
+ 23. K10 (K1's feature epilogue) against its plain version, B=4 x 5 s and
+     B=128 x 30 s: magnitudes and aux bit-equal to the launch without
+     features; the lanes against the plain epilogue on the kernel's own
+     magnitudes (utils/parity.FEAT_SAME_MAGNITUDES), and at B=4 x 5 s
+     against the whole plain version (across the two DFTs)
+ 24. the main path in its feature-epilogue configuration
+     (SONIDO_ENABLE_FEAT_EPILOGUE=1) at B=128 x 30 s: K10 launched, the
+     default configuration's keys, shapes and dtypes, finite values,
+     agreement with the default configuration's outputs; both
+     configurations' step times in turns; the configuration at
+     [2, 44100] on the card against the CPU
+ 25. K9 (contrast band means) at the main path's magnitudes
+     [128, 5164, 513] with the 6 contrast edges, driven once as its
+     public op, then against its plain version (the contrast sorts), and
+     the tie and zero case exactly
+ 26. K3 (YIN difference rows) at B=128 x 30 s, 1024/512, driven once as
+     its public op, then against its plain version
+ 27. K10, K9 and K3 against their plain versions, timed, and K1 against
+     torch.stft
 
-The second-to-last line is {"kernels": [...]}; the last line is
+The second-to-last line is {"kernels": [...]}: for each kernel its
+launches on its path, its largest error against its plain version, its
+time, the plain version's, its bound (the larger of the bytes it must move
+over 3.35 TB/s and its operations over 67 TFLOP/s, the H100's fp32 rate
+outside the tensor cores, from this run's shapes) and, where one PyTorch
+call computes the same function, that call's time. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Inputs are harmonic tones plus noise (utils/parity.synth_pcm and
 utils/parity.harmonic_clips), drawn with numpy from SEED.
@@ -80,6 +106,7 @@ utils/parity.harmonic_clips), drawn with numpy from SEED.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -107,8 +134,50 @@ OUTPUT_KEYS = (
 )
 
 
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """(least ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the fp32 rate."""
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def stft_ops(w: int) -> float:
+    """Operations per frame of the STFT kernel: window, a radix-2 FFT of
+    W/2 complex points (5 N log2 N), the real split and magnitude (~20 per
+    bin), the aux sums (~4 per bin and 3 per sample)."""
+    f_bins = w // 2 + 1
+    return w + 5 * (w // 2) * np.log2(w // 2) + 24 * f_bins + 3 * w
+
+
+def yin_ops(w: int) -> float:
+    """Operations per frame of the difference function d = E1 + S - 2 r in
+    its least-work form, the one the plain version and the TPU kernel
+    take: r(tau) as a cross-correlation through real FFTs of W points (two
+    forward and one inverse, 2.5 W log2 W each, and a complex product of 6
+    per bin), E1 and S from a prefix sum of squares (2 per sample), and
+    3 per lag to combine them (H = W/2 lags)."""
+    return 3 * 2.5 * w * np.log2(w) + 6 * (w // 2 + 1) + 2 * w + 3 * (w // 2)
+
+
+def in_turns(kern, plain, iters: int, warm: bool = True) -> tuple:
+    """(kernel ms, plain ms), each the mean of two CUDA-event windows run
+    plain, kernel, kernel, plain; the plain windows take iters // 3
+    calls."""
+    if warm:
+        kern(), plain()
+    p1 = cuda_ms(plain, max(iters // 3, 1))
+    q1 = cuda_ms(kern, iters)
+    q2 = cuda_ms(kern, iters)
+    p2 = cuda_ms(plain, max(iters // 3, 1))
+    return (q1 + q2) / 2, (p1 + p2) / 2
 
 
 def card_line() -> str:
@@ -432,13 +501,17 @@ def run_alignment(card: str, dev: torch.device) -> dict:
         ("fill", fill, fill_plain, (qe, re_, band, n_e, n_e)),
         ("backtrack", walk, walk_plain, (cost2, band, n_e, n_e)),
     ):
-        p1 = cuda_ms(lambda: plain(*args), 1)
-        q1 = cuda_ms(lambda: kern(*args), 3)
-        q2 = cuda_ms(lambda: kern(*args), 3)
-        p2 = cuda_ms(lambda: plain(*args), 1)
-        times[name] = ((q1 + q2) / 2, (p1 + p2) / 2)
-        log(f"DTW {name} at B=2, n={n_e}, band {band}: kernel {q1:.3f} / {q2:.3f} ms, "
-            f"plain {p1:.1f} / {p2:.1f} ms [{card}]")
+        # no warm-up: the plain fill at this size takes seconds
+        times[name] = in_turns(lambda: kern(*args), lambda: plain(*args), 3, warm=False)
+        log(f"DTW {name} at B=2, n={n_e}, band {band}: kernel {times[name][0]:.3f} ms, "
+            f"plain {times[name][1]:.1f} ms [{card}]")
+    # bounds at the timed geometry: the fill writes the whole band (a local
+    # distance, a three-way min and an add per cell, d = 1); the walk reads
+    # three neighbours and writes (q, r, cost) at each step of its paths
+    cells = 2 * (n_e + 1) * (2 * band + 1)
+    bounds = {"fill": bound(qe.numel() * 8 + cells * 4, cells * 8)}
+    steps = int(walk(cost2, band, n_e, n_e)[3].sum())
+    bounds["backtrack"] = bound(steps * 24 + 2 * 4, steps * 6)
     del cost2
     q32, r32 = e_src[:FLEET_BATCH].contiguous(), e_cdn[:FLEET_BATCH].contiguous()
     fill(q32, r32, band, n_e, n_e)
@@ -497,7 +570,192 @@ def run_alignment(card: str, dev: torch.device) -> dict:
     fill_err = max(e["fill_max_abs"] for e in errs.values())
     walk_err = max(e["path_cost"] for e in errs.values())
     return {"launches": launches, "times": times, "fill_err": fill_err, "walk_err": walk_err,
-            "fleet_ms": fleet_ms}
+            "fleet_ms": fleet_ms, "bounds": bounds}
+
+
+def run_features(card: str, dev: torch.device, full: torch.Tensor, small: torch.Tensor) -> dict:
+    """Phases 23-27: K10, the main path's feature-epilogue configuration,
+    K9 and K3. Returns the numbers of their kernels-line entries and the
+    two configurations' step times."""
+    from sonido_sonar_tpu_torch.config.config import WindowType
+    from sonido_sonar_tpu_torch.ops import hopper_contrast, hopper_stft, hopper_yin
+    from sonido_sonar_tpu_torch.ops.filters import pre_emphasis
+    from sonido_sonar_tpu_torch.ops.spectral import contrast_band_edges
+    from sonido_sonar_tpu_torch.ops.tables import device_table
+    from sonido_sonar_tpu_torch.ops.windows import make_window
+    from sonido_sonar_tpu_torch.parallel import pipeline
+    from sonido_sonar_tpu_torch.utils import parity
+
+    k1, k1_plain = hopper_stft.stft_magnitude_hopper, hopper_stft.stft_magnitude_plain
+    k9, k9_plain = hopper_contrast.band_select_means_hopper, hopper_contrast.band_select_means_plain
+    k3, k3_plain = hopper_yin.yin_difference_hopper, hopper_yin.yin_difference_plain
+    feat_kw = dict(pre_emph=PRE_EMPH, with_features=True, sample_rate=SR)
+    res = {}
+
+    def hold_k10(x, across_dfts: bool):                       # phase 23
+        """The epilogue against its plain version on the kernel's own
+        magnitudes (K1's are held to their plain version in phase 4 and
+        must equal the launch without features); with `across_dfts`, the
+        whole plain version too. Flatness and slope take logs of every bin
+        above 1e-10, so across two DFTs a frame's few smallest bins move
+        them: at 128 x 30 s one frame in 661k missed the whole-path bound
+        of utils/parity (flatness 0.2244 against 0.2171), so the whole
+        plain version is held at the small size only."""
+        what = f"K10 vs plain, {tuple(x.shape)}"
+        mag, aux, feat = k1(x, WINDOW, HOP, **feat_kw)
+        mag0, aux0 = k1(x, WINDOW, HOP, pre_emph=PRE_EMPH)
+        torch.cuda.synchronize()
+        if not (torch.equal(mag, mag0) and all(torch.equal(aux[k], aux0[k]) for k in aux0)):
+            raise AssertionError(f"{what}: magnitudes or aux differ from the launch without features")
+        same = hopper_stft.frame_features(mag, SR, WINDOW)
+        e = require(parity.check_feat(np32(feat), np32(same), same_magnitudes=True),
+                    what + ", on the kernel's magnitudes")
+        del same
+        if across_dfts:
+            pfeat = k1_plain(x, WINDOW, HOP, **feat_kw)[2]
+            require(parity.check_feat(np32(feat), np32(pfeat), same_magnitudes=False),
+                    what + ", across the two DFTs")
+        log(f"[{what}] magnitudes and aux bit-equal to the launch without features")
+        return e
+
+    hold_k10(small, across_dfts=True)
+    res["K10_err"] = max(hold_k10(full, across_dfts=False).values())
+    torch.cuda.empty_cache()
+
+    # phase 24: the feature-epilogue configuration of the main path
+    t_frames = (full.shape[-1] - WINDOW) // HOP + 1
+    k1.launches = k1.feat_launches = 0
+    default = pipeline.batched_fingerprint_features(full, SR, WINDOW, HOP)
+    torch.cuda.synchronize()
+    if k1.feat_launches != 0 or k1.launches != 1:
+        raise AssertionError(f"the default configuration launched K1 {k1.launches} times, "
+                             f"{k1.feat_launches} with features")
+    os.environ[pipeline.FEAT_EPILOGUE_ENV] = "1"
+    try:
+        k1.launches = k1.feat_launches = 0
+        hopper_yin.yin_pitch_hopper.launches = 0
+        out = pipeline.batched_fingerprint_features(full, SR, WINDOW, HOP)
+        torch.cuda.synchronize()
+        res["feat_launches"] = {"K1": k1.launches, "K10": k1.feat_launches,
+                                "K2": hopper_yin.yin_pitch_hopper.launches}
+        log(f"feature-epilogue main path launches: {res['feat_launches']}")
+        if res["feat_launches"] != {"K1": 1, "K10": 1, "K2": 1}:
+            raise AssertionError(f"the feature-epilogue configuration launched {res['feat_launches']}")
+        if list(out) != list(default):
+            raise AssertionError(f"keys {list(out)}, expected {list(default)}")
+        for key, v in out.items():
+            want = default[key]
+            if v.shape != want.shape or v.dtype != want.dtype or not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{key}: {v.dtype}{tuple(v.shape)} (finite "
+                                     f"{bool(torch.isfinite(v).all())}), expected "
+                                     f"{want.dtype}{tuple(want.shape)}")
+        require(parity.check_features({k: np32(v) for k, v in out.items()},
+                                      {k: np32(v) for k, v in default.items()},
+                                      np.zeros((full.shape[0], t_frames), bool), SR, WINDOW),
+                f"main path B={full.shape[0]}: feature-epilogue against default configuration")
+        del out, default
+
+        def step(flag: str):
+            os.environ[pipeline.FEAT_EPILOGUE_ENV] = flag
+            return timed_steps(lambda: pipeline.batched_fingerprint_features(full, SR, WINDOW, HOP),
+                               TIMED_STEPS)
+
+        runs = {"default": [], "feat": []}
+        for name, flag in (("default", ""), ("feat", "1"), ("feat", "1"), ("default", "")):
+            runs[name] += step(flag)
+        for name, steps in runs.items():
+            res[f"step_ms_{name}"] = 1e3 * float(np.mean(steps))
+            log(f"main path ({name} configuration) B={full.shape[0]} x {FULL_SECONDS} s: "
+                f"{res[f'step_ms_{name}']:.2f} ms/step (steps "
+                f"{', '.join(f'{1e3 * t:.2f}' for t in steps)}) [{card}]")
+        os.environ[pipeline.FEAT_EPILOGUE_ENV] = "1"
+        pcm2 = parity.synth_pcm(2, SR, SEED + 2, SR)
+        on_card = pipeline.batched_fingerprint_features(pcm2.to(dev))
+        on_cpu = pipeline.batched_fingerprint_features(pcm2)
+        require(parity.check_features(
+            {k: np32(v) for k, v in on_card.items()}, {k: v.numpy() for k, v in on_cpu.items()},
+            parity.near_zero_frames(pcm2.numpy(), WINDOW, HOP, PRE_EMPH), SR, WINDOW,
+        ), "feature-epilogue main path [2, 44100], card vs CPU")
+    finally:
+        del os.environ[pipeline.FEAT_EPILOGUE_ENV]
+    torch.cuda.empty_cache()
+
+    # phase 25: K9 at the main path's magnitudes, its op driven once, then held
+    mag = k1(full, WINDOW, HOP, pre_emph=PRE_EMPH)[0]
+    edges = contrast_band_edges(6, mag.shape[-1], SR)
+    k9.launches = 0
+    peak, valley = k9(mag, edges)
+    torch.cuda.synchronize()
+    res["K9_launches"] = k9.launches
+    ppeak, pvalley = k9_plain(mag, edges)
+    e9 = require(parity.check_band_means(np32(peak), np32(valley), np32(ppeak), np32(pvalley)),
+                 f"K9 vs plain, {tuple(mag.shape)}, edges {edges}")
+    res["K9_err"] = max(e9.values())
+    tie = torch.zeros((1, 16, mag.shape[-1]), device=dev)
+    tie[0, :, edges[3]:edges[4]] = 0.25
+    tpeak, tvalley = k9(tie, edges)
+    others = [0, 1, 2, 4, 5]
+    if not (bool((tpeak[0, :, 3] == 0.0625).all()) and bool((tvalley[0, :, 3] == 0.0625).all())
+            and not bool(tpeak[0, :, others].any()) and not bool(tvalley[0, :, others].any())):
+        raise AssertionError("K9: the constant band or the zero bands are not exact")
+    log("[K9] the tie and zero case exact")
+    t9 = in_turns(lambda: k9(mag, edges), lambda: k9_plain(mag, edges), 10)
+    res["K9_times"] = t9
+    in_bands = edges[-1] - edges[0]
+    frames = mag.numel() // mag.shape[-1]
+    # a linear-time selection of the top and the bottom k: a compare and
+    # an add per element for each, over the band's bins
+    res["K9_bound"] = bound(mag.numel() * 4 + 2 * frames * 6 * 4, frames * in_bands * 4)
+    res["K9_shape"] = tuple(mag.shape)
+    del peak, valley, ppeak, pvalley
+
+    # phase 27 (K10 and K1 against torch.stft) while the magnitudes' input is here
+    res["K10_times"] = in_turns(lambda: k1(full, WINDOW, HOP, **feat_kw),
+                                lambda: k1_plain(full, WINDOW, HOP, **feat_kw), 10)
+    xp = pre_emphasis(full, PRE_EMPH)
+    hann = device_table(make_window, (WindowType.HANN, WINDOW), dev)
+
+    def library_stft():
+        return torch.stft(xp, WINDOW, HOP, window=hann, center=False, return_complex=True).abs()
+
+    lib = library_stft()
+    if lib.shape != (full.shape[0], mag.shape[-1], mag.shape[-2]):
+        raise AssertionError(f"torch.stft gave {tuple(lib.shape)}")
+    lib_err = float((lib.transpose(-1, -2) - mag).abs().max() / mag.abs().max())
+    del lib
+    res["K1_library_ms"] = cuda_ms(library_stft, 10)
+    log(f"torch.stft(center=False).abs() at {tuple(full.shape)}: {res['K1_library_ms']:.3f} ms, "
+        f"max |difference| from K1 {lib_err:.2e} of the largest magnitude [{card}]")
+    del xp, mag
+    torch.cuda.empty_cache()
+
+    # phase 26: K3 at B=128 x 30 s, 1024/512, its op driven once, then held
+    k3.launches = 0
+    d = k3(full, PITCH_WINDOW, PITCH_HOP)
+    torch.cuda.synchronize()
+    res["K3_launches"] = k3.launches
+    pd = k3_plain(full, PITCH_WINDOW, PITCH_HOP)
+    if d.shape != pd.shape:
+        raise AssertionError(f"K3: shape {tuple(d.shape)}, plain {tuple(pd.shape)}")
+    scale = float(pd.abs().max())
+    res["K3_err"] = float((d - pd).abs().max())
+    log(f"[K3 vs plain, {tuple(full.shape)}, 1024/512] max |d - plain| {res['K3_err']:.4g} "
+        f"= {res['K3_err'] / scale:.3g} of the largest |d| (limit {parity.YIN_DIFF_ATOL_SCALE})")
+    if not res["K3_err"] <= parity.YIN_DIFF_ATOL_SCALE * scale:
+        raise AssertionError("K3 disagrees with its plain version")
+    del pd
+    frames3 = d.shape[0] * d.shape[1]
+    res["K3_bound"] = bound(full.numel() * 4 + d.numel() * 4, frames3 * yin_ops(PITCH_WINDOW))
+    res["K3_shape"] = tuple(d.shape)
+    del d
+    torch.cuda.empty_cache()
+    res["K3_times"] = in_turns(lambda: k3(full, PITCH_WINDOW, PITCH_HOP),
+                               lambda: k3_plain(full, PITCH_WINDOW, PITCH_HOP), 10)
+    for name in ("K10", "K9", "K3"):
+        q, p_ = res[f"{name}_times"]
+        log(f"{name}: kernel {q:.3f} ms, plain {p_:.3f} ms [{card}]")
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -654,15 +912,24 @@ def main() -> int:
         ("K1", k1, k1_plain, (WINDOW, HOP, "hann", PRE_EMPH)),
         ("K2", k2, k2_plain, k2_args),
     ):
-        kern(full, *args), plain(full, *args)  # warm-up
-        p1 = cuda_ms(lambda: plain(full, *args), 3)
-        q1 = cuda_ms(lambda: kern(full, *args), 10)
-        q2 = cuda_ms(lambda: kern(full, *args), 10)
-        p2 = cuda_ms(lambda: plain(full, *args), 3)
-        times[name] = ((q1 + q2) / 2, (p1 + p2) / 2)
-        log(f"{name} at {tuple(full.shape)}: kernel {q1:.3f} / {q2:.3f} ms, "
-            f"plain {p1:.3f} / {p2:.3f} ms [{card}]")
+        times[name] = in_turns(lambda: kern(full, *args), lambda: plain(full, *args), 10)
+        log(f"{name} at {tuple(full.shape)}: kernel {times[name][0]:.3f} ms, "
+            f"plain {times[name][1]:.3f} ms [{card}]")
         torch.cuda.empty_cache()
+    frames_k1 = FULL_B * t_frames
+    bounds = {
+        "K1": bound(full.numel() * 4 + frames_k1 * (WINDOW // 2 + 1 + 5) * 4,
+                    frames_k1 * stft_ops(WINDOW)),
+        "K2": bound(full.numel() * 4 + FULL_B * t_pitch * 2 * 4,
+                    FULL_B * t_pitch * (yin_ops(PITCH_WINDOW) + 10 * PITCH_WINDOW // 2)),
+        "K2amp": bound(full.numel() * 4 + frames_k1 * 3 * 4,
+                       frames_k1 * (yin_ops(1024) + 10 * 1024 // 2)),
+        "K10": bound(full.numel() * 4 + frames_k1 * (WINDOW // 2 + 1 + 5 + 43) * 4,
+                     frames_k1 * (stft_ops(WINDOW) + 15 * (WINDOW // 2 + 1)
+                                  + 2 * hopper_stft.feature_tables(WINDOW // 2 + 1, SR, WINDOW)[1].size)),
+    }
+
+    fslice = run_features(card, dev, full, small)            # phases 23-27
 
     k4 = hopper_onsets.thin_onsets_hopper
     k4_plain = hopper_onsets.thin_onsets_plain
@@ -711,6 +978,7 @@ def main() -> int:
     real = T.flux_onset_candidates(spectral_flux(mag_m), 0.3).contiguous()
     del mag_m
     kept = hold_k4(real, 8, f"the music path's flux candidates {tuple(real.shape)}")
+    bounds["K4"] = bound(2 * real.numel(), real.numel())
     odd_c = torch.from_numpy(rng.random((3, 777)) < 0.3).to(dev)
     hold_k4(odd_c, 1, "[3, 777]")
     hold_k4(torch.from_numpy(rng.random((2, 3, t_tempo)) < 0.3).to(dev), 4, "[2, 3, T]")
@@ -828,14 +1096,9 @@ def main() -> int:
         ("K4", k4, k4_plain, real, {}),
     ):
         args = VQ_ARGS if name == "K2amp" else (8,)
-        kern(x, *args, **kw), plain(x, *args, **kw)  # warm-up
-        p1 = cuda_ms(lambda: plain(x, *args, **kw), 3)
-        q1 = cuda_ms(lambda: kern(x, *args, **kw), 10)
-        q2 = cuda_ms(lambda: kern(x, *args, **kw), 10)
-        p2 = cuda_ms(lambda: plain(x, *args, **kw), 3)
-        times[name] = ((q1 + q2) / 2, (p1 + p2) / 2)
-        log(f"{name} at {tuple(x.shape)}: kernel {q1:.4f} / {q2:.4f} ms, "
-            f"plain {p1:.3f} / {p2:.3f} ms [{card}]")
+        times[name] = in_turns(lambda: kern(x, *args, **kw), lambda: plain(x, *args, **kw), 10)
+        log(f"{name} at {tuple(x.shape)}: kernel {times[name][0]:.4f} ms, "
+            f"plain {times[name][1]:.3f} ms [{card}]")
         torch.cuda.empty_cache()
     del full_sp
 
@@ -851,38 +1114,65 @@ def main() -> int:
     for mod in ("jax", "sonido_sonar_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
+    bounds["fill"], bounds["backtrack"] = align["bounds"]["fill"], align["bounds"]["backtrack"]
+    bounds["K9"], bounds["K3"] = fslice["K9_bound"], fslice["K3_bound"]
     kernels = [
         {"name": "K1 stft_magnitude_aux", "route": "cuda",
          "source": "sonido_sonar_tpu_torch/csrc/stft.cu",
          "replaces": "sonido_sonar_tpu/ops/pallas_stft.py:145",
          "launches": launches["K1"], "max_abs_err": errs["K1", "full"]["magnitude"],
-         "ms": times["K1"][0], "plain_ms": times["K1"][1]},
+         "ms": times["K1"][0], "plain_ms": times["K1"][1], "key": "K1",
+         "library_ms": fslice["K1_library_ms"]},
         {"name": "K2 yin_pitch", "route": "cuda",
          "source": "sonido_sonar_tpu_torch/csrc/yin.cu",
          "replaces": "sonido_sonar_tpu/ops/pallas_yin.py:238",
          "launches": launches["K2"], "max_abs_err": errs["K2", "full"]["pitch_max_abs"],
-         "ms": times["K2"][0], "plain_ms": times["K2"][1]},
+         "ms": times["K2"][0], "plain_ms": times["K2"][1], "key": "K2"},
         {"name": "K2 yin_pitch with_period_amp", "route": "cuda",
          "source": "sonido_sonar_tpu_torch/csrc/yin.cu",
          "replaces": "sonido_sonar_tpu/ops/pallas_yin.py:356",
          "launches": gen_launches["K2amp"], "max_abs_err": errs["K2amp", "full"]["amp_max_abs"],
-         "ms": times["K2amp"][0], "plain_ms": times["K2amp"][1]},
+         "ms": times["K2amp"][0], "plain_ms": times["K2amp"][1], "key": "K2amp"},
+        {"name": "K3 yin_difference", "route": "cuda",
+         "source": "sonido_sonar_tpu_torch/csrc/yin.cu",
+         "replaces": "sonido_sonar_tpu/ops/pallas_yin.py:162",
+         "launches": fslice["K3_launches"], "max_abs_err": fslice["K3_err"],
+         "ms": fslice["K3_times"][0], "plain_ms": fslice["K3_times"][1], "key": "K3"},
         {"name": "K4 thin_onsets", "route": "cuda",
          "source": "sonido_sonar_tpu_torch/csrc/onsets.cu",
          "replaces": "sonido_sonar_tpu/ops/pallas_onsets.py:60",
          "launches": music_launches["K4"], "max_abs_err": 0.0,
-         "ms": times["K4"][0], "plain_ms": times["K4"][1]},
+         "ms": times["K4"][0], "plain_ms": times["K4"][1], "key": "K4"},
         {"name": "K5/K6/K7 dtw_fill_banded", "route": "cuda",
          "source": "sonido_sonar_tpu_torch/csrc/dtw.cu",
          "replaces": "sonido_sonar_tpu/ops/stats/pallas_dtw.py:297, :439, :173",
          "launches": align["launches"]["fill"], "max_abs_err": align["fill_err"],
-         "ms": align["times"]["fill"][0], "plain_ms": align["times"]["fill"][1]},
+         "ms": align["times"]["fill"][0], "plain_ms": align["times"]["fill"][1], "key": "fill"},
         {"name": "K8 dtw_backtrack_banded", "route": "cuda",
          "source": "sonido_sonar_tpu_torch/csrc/dtw.cu",
          "replaces": "sonido_sonar_tpu/ops/stats/pallas_backtrack.py:150",
          "launches": align["launches"]["backtrack"], "max_abs_err": align["walk_err"],
-         "ms": align["times"]["backtrack"][0], "plain_ms": align["times"]["backtrack"][1]},
+         "ms": align["times"]["backtrack"][0], "plain_ms": align["times"]["backtrack"][1],
+         "key": "backtrack"},
+        {"name": "K9 contrast_band_means", "route": "cuda",
+         "source": "sonido_sonar_tpu_torch/csrc/contrast.cu",
+         "replaces": "sonido_sonar_tpu/ops/pallas_contrast.py:140",
+         "launches": fslice["K9_launches"], "max_abs_err": fslice["K9_err"],
+         "ms": fslice["K9_times"][0], "plain_ms": fslice["K9_times"][1], "key": "K9"},
+        {"name": "K10 stft_features", "route": "cuda",
+         "source": "sonido_sonar_tpu_torch/csrc/stft.cu",
+         "replaces": "sonido_sonar_tpu/ops/pallas_stft.py:334",
+         "launches": fslice["feat_launches"]["K10"], "max_abs_err": fslice["K10_err"],
+         "ms": fslice["K10_times"][0], "plain_ms": fslice["K10_times"][1], "key": "K10"},
     ]
+    for k in kernels:
+        k["bound_ms"], k["bound_by"] = bounds[k.pop("key")]
+        k.setdefault("library_ms", None)
+        log(f"{k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
+            f"({100 * k['bound_ms'] / k['ms']:.1f} % of it), plain {k['plain_ms']:.3f} ms, "
+            f"launches {k['launches']} [{card}]")
+    log(f"main path step: default {fslice['step_ms_default']:.2f} ms, feature epilogue "
+        f"{fslice['step_ms_feat']:.2f} ms [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

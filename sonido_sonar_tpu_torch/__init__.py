@@ -6,6 +6,9 @@ under `csrc/`, built with nvcc for sm_90a at first use (`_build.py`).
 
 Every kernel wrapper takes its plain PyTorch version for a tensor on the
 CPU and launches its kernel (or raises) for a tensor on a CUDA device.
+The entry points run on the card unless asked for the CPU: a tensor
+stays on its device, numpy input goes to their `device` argument, which
+defaults to "cuda" (`utils/device.py`).
 
 Entry points of the ported slices:
 

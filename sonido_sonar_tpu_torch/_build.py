@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources under `csrc/` are compiled by nvcc for sm_90a into one
-shared library with a plain C interface, loaded with ctypes:
+The sources under `csrc/` are compiled by nvcc for sm_90a, one nvcc
+per source, all started together, then linked into one shared library
+with a plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libsonido_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c csrc/<name>.cu -o _build/<hash>/<name>.o   # each
+    nvcc -shared -o _build/libsonido_kernels_<hash>.so _build/<hash>/*.o
 
 The build runs at first use, from this package's sources only, into
 `_build/` beside this file (git-ignored). The library's name carries a
@@ -33,21 +35,31 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("csrc/stft.cu", "csrc/yin.cu", "csrc/onsets.cu", "csrc/dtw.cu")
+SOURCES = (
+    "csrc/stft.cu", "csrc/yin.cu", "csrc/onsets.cu", "csrc/dtw.cu", "csrc/contrast.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p (a plain int
-# would be cut to 32 bits), ints as c_int, floats as c_float
+# would be cut to 32 bits), ints as c_int (long long as c_longlong),
+# floats as c_float
 _SIGNATURES = {
     # sig, window, twiddle, mag, aux, batch, n, frames, window, hop, pre_emph, stream
     "sonido_stft_aux": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # sig, window, twiddle, mag, aux, feat, row_ptr, bin, weight, freq_logf,
+    # batch, n, frames, window, hop, pre_emph, stream
+    "sonido_stft_features": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # sig, pitch, conf, amp (nullable), batch, n, frames, window, hop,
     # pre_emph, sample_rate, min_freq, max_freq, threshold, stream
     "sonido_yin_pitch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
+    # sig, d, batch, n, frames, window, hop, stream
+    "sonido_yin_difference": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # mag, bands, peak, valley, frames, bins, bands, stream
+    "sonido_contrast_band_means": (_P, _P, _P, _P, _L, _I, _I, _P),
     # cand, kept, rows, frames, min_frames, stream
     "sonido_thin_onsets": (_P, _P, _I, _I, _I, _P),
     # q, r, cost, batch, n, m, d, band, stream
@@ -88,8 +100,39 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def nvcc_command(nvcc: str, out: Path) -> list:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *(str(_PKG / s) for s in SOURCES)]
+def nvcc_commands(nvcc: str, out: Path) -> tuple:
+    """(one compile command per source, the link command) building the
+    library `out`; the objects go to a directory beside it."""
+    objs = out.with_suffix("")
+    compiles = [
+        [nvcc, *NVCC_FLAGS, "-c", str(_PKG / s), "-o", str(objs / (Path(s).stem + ".o"))]
+        for s in SOURCES
+    ]
+    link = [nvcc, "-shared", "-o", str(out), *(c[-1] for c in compiles)]
+    return compiles, link
+
+
+def _run_nvcc(nvcc: str, out: Path) -> str:
+    """Compile every source at once, then link; raise KernelError with
+    nvcc's output on a failure. Returns the compilers' output."""
+    compiles, link = nvcc_commands(nvcc, out)
+    Path(compiles[0][-1]).parent.mkdir(parents=True, exist_ok=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in compiles]
+    logs, failed = [], []
+    for cmd, proc in zip(compiles, procs):
+        log = proc.communicate()[0]
+        logs.append(f"== {Path(cmd[cmd.index('-c') + 1]).name}\n{log}")
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    if not failed:
+        res = subprocess.run(link, capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.returncode)
+    if failed:
+        raise KernelError(f"nvcc failed ({failed}):\n" + "\n".join(logs))
+    return "\n".join(logs)
 
 
 @functools.lru_cache(maxsize=1)
@@ -102,16 +145,15 @@ def build() -> tuple:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        res = subprocess.run(
-            nvcc_command(find_nvcc(), tmp), capture_output=True, text=True
-        )
+        try:
+            log = _run_nvcc(find_nvcc(), tmp)
+        except KernelError:
+            tmp.unlink(missing_ok=True)  # a failed link may leave part of a library
+            raise
+        finally:
+            shutil.rmtree(tmp.with_suffix(""), ignore_errors=True)
         seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise KernelError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-            )
-        log_path.write_text(res.stdout + res.stderr)
+        log_path.write_text(log)
         os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
     try:
         lib = ctypes.CDLL(str(lib_path))

@@ -24,6 +24,14 @@
 // block handles one frame; the frame (W floats) and its H difference
 // values live in shared memory, so the [B, T, W] frames tensor and the
 // [B, T, H] difference rows never exist in device memory.
+//
+// K3, the difference rows alone (sonido_yin_difference): replaces the TPU
+// kernel yin_difference_pallas (pallas_yin.py:162, pallas_call :206),
+// [B, N] -> d [B, T, H], no pre-emphasis. The same staging and the same
+// difference function (the device functions below) as K2, with d written
+// to device memory in place of the CMNDF and the pick. Bound the same way
+// as K2's first half; the H floats a frame writes are coalesced (lag tau
+// = tid + 128 r).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -34,6 +42,41 @@ constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr float kEps = 1e-10f;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Stage frame t (samples [t*hop, t*hop + W) of row x) in s_x,
+// pre-emphasized when pre_emph != 0 (x[-1] = 0 only at the row start).
+template <int W>
+__device__ __forceinline__ void stage_frame(const float* __restrict__ x, int t, int hop,
+                                            float pre_emph, float* s_x) {
+  const int s0 = t * hop;
+  for (int i = threadIdx.x; i < W; i += kThreads) {
+    const int p = s0 + i;
+    float v = x[p];
+    if (pre_emph != 0.f) {
+      const float prev = p > 0 ? x[p - 1] : 0.f;
+      v = __fsub_rn(v, __fmul_rn(pre_emph, prev));
+    }
+    s_x[i] = v;
+  }
+}
+
+// The difference function d(tau) = sum_{j<H} (x[j] - x[j+tau])^2 of the
+// staged frame for this thread's lags tau = tid + kThreads * r.
+template <int R>
+__device__ __forceinline__ void difference(const float* s_x, float (&acc)[R]) {
+  constexpr int H = R * kThreads;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+  for (int j = 0; j < H; ++j) {
+    const float a = s_x[j];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float dl = a - s_x[j + tid + r * kThreads];
+      acc[r] = fmaf(dl, dl, acc[r]);
+    }
+  }
+}
 
 template <int R>  // lags per thread: H = R * kThreads
 __global__ void __launch_bounds__(kThreads) yin_kernel(
@@ -50,31 +93,11 @@ __global__ void __launch_bounds__(kThreads) yin_kernel(
 
   const int t = blockIdx.x, row = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const float* x = sig + (size_t)row * n;
-  const int s0 = t * hop;
-  for (int i = tid; i < W; i += kThreads) {
-    const int p = s0 + i;
-    float v = x[p];
-    if (pre_emph != 0.f) {
-      const float prev = p > 0 ? x[p - 1] : 0.f;
-      v = __fsub_rn(v, __fmul_rn(pre_emph, prev));
-    }
-    s_x[i] = v;
-  }
+  stage_frame<W>(sig + (size_t)row * n, t, hop, pre_emph, s_x);
   __syncthreads();
 
-  // difference function, lags tau = tid + kThreads * r
   float acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  for (int j = 0; j < H; ++j) {
-    const float a = s_x[j];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float dl = a - s_x[j + tid + r * kThreads];
-      acc[r] = fmaf(dl, dl, acc[r]);
-    }
-  }
+  difference<R>(s_x, acc);
 #pragma unroll
   for (int r = 0; r < R; ++r) s_cm[tid + r * kThreads] = acc[r];
   __syncthreads();
@@ -160,6 +183,30 @@ __global__ void __launch_bounds__(kThreads) yin_kernel(
   }
 }
 
+// K3: the difference rows of each frame, d [B, T, H], to device memory.
+template <int R>
+__global__ void __launch_bounds__(kThreads) yin_difference_kernel(
+    const float* __restrict__ sig, float* __restrict__ d, int n, int t_frames, int hop) {
+  constexpr int H = R * kThreads;
+  __shared__ float s_x[2 * H];
+  const int t = blockIdx.x, row = blockIdx.y;
+  stage_frame<2 * H>(sig + (size_t)row * n, t, hop, 0.f, s_x);
+  __syncthreads();
+  float acc[R];
+  difference<R>(s_x, acc);
+  float* out = d + ((size_t)row * t_frames + t) * H;
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[threadIdx.x + r * kThreads] = acc[r];
+}
+
+template <int R>
+cudaError_t launch_difference(const float* sig, float* d, int batch, int n, int t_frames, int hop,
+                              cudaStream_t stream) {
+  yin_difference_kernel<R><<<dim3(t_frames, batch), kThreads, 0, stream>>>(sig, d, n, t_frames,
+                                                                           hop);
+  return cudaGetLastError();
+}
+
 template <int R>
 cudaError_t launch(const float* sig, float* pitch, float* conf, float* amp, int batch, int n,
                    int t_frames, int hop, float pre_emph, float sample_rate, float min_freq,
@@ -189,6 +236,24 @@ extern "C" int sonido_yin_pitch(const float* sig, float* pitch, float* conf, flo
     case 512: err = launch<2>(sig, pitch, conf, amp, batch, n, t_frames, hop, pre_emph, sample_rate, min_freq, max_freq, threshold, s); break;
     case 1024: err = launch<4>(sig, pitch, conf, amp, batch, n, t_frames, hop, pre_emph, sample_rate, min_freq, max_freq, threshold, s); break;
     case 2048: err = launch<8>(sig, pitch, conf, amp, batch, n, t_frames, hop, pre_emph, sample_rate, min_freq, max_freq, threshold, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// Launch K3 on `stream`: d [B, T, W/2] of the raw (not pre-emphasized)
+// signal. Window must be 256, 512, 1024 or 2048. Returns the CUDA error
+// code (0 on success).
+extern "C" int sonido_yin_difference(const float* sig, float* d, int batch, int n, int t_frames,
+                                     int w, int hop, void* stream) {
+  if (hop < 1 || t_frames < 1 || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (w) {
+    case 256: err = launch_difference<1>(sig, d, batch, n, t_frames, hop, s); break;
+    case 512: err = launch_difference<2>(sig, d, batch, n, t_frames, hop, s); break;
+    case 1024: err = launch_difference<4>(sig, d, batch, n, t_frames, hop, s); break;
+    case 2048: err = launch_difference<8>(sig, d, batch, n, t_frames, hop, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);

@@ -13,6 +13,10 @@ full-range scan, GCC-PHAT-verified) in `align_audio_files`.
 `_align_with` keeps the reference's degradation contract (a failed
 feature alignment is reported, not raised) for data errors; a
 `KernelError` (a CUDA kernel that did not build or launch) propagates.
+
+Tensors are aligned on their own device; numpy PCM and feature series go
+to the extractor's `device` (the card unless the caller asks for the CPU;
+`utils/device.py`).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from sonido_sonar_tpu_torch.ops.stats.alignment import (
 from sonido_sonar_tpu_torch.ops.stats.correlation import _next_pow2
 from sonido_sonar_tpu_torch.ops.temporal import short_time_energy
 from sonido_sonar_tpu_torch.parallel.pipeline import _phat_cc
+from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, as_float32
 
 # selectBestAlignment weights (alignment.go:412-430)
 _FEATURE_WEIGHTS = {
@@ -83,23 +88,24 @@ class AlignmentFeatures:
     reference_length: float = 0.0
 
 
-def _tensor(x) -> torch.Tensor:
-    return torch.as_tensor(x).to(torch.float32)
-
-
 class AlignmentExtractor:
     """AlignmentExtractor (alignment.go:17-135)."""
 
     def __init__(self, feature_config: FeatureConfig,
                  alignment_config: Optional[AlignmentConfig] = None,
-                 max_lag_seconds: Optional[float] = None, enable_all_features: bool = False):
+                 max_lag_seconds: Optional[float] = None, enable_all_features: bool = False,
+                 device: Device = DEFAULT_DEVICE):
         self.config = feature_config
+        self.device = torch.device(device)
         self.alignment_config = alignment_config or AlignmentConfig()
         self.max_lag_seconds = (max_lag_seconds if max_lag_seconds is not None
                                 else self.alignment_config.max_lag_seconds)
         self.max_lag_samples = int(self.max_lag_seconds * feature_config.sample_rate)
         self.enable_all_features = enable_all_features
         self._log = get_global_logger().with_component("alignment_extractor")
+
+    def _tensor(self, x) -> torch.Tensor:
+        return as_float32(x, self.device)
 
     def _analyzer(self, method: str, max_lag_frames: int) -> AlignmentAnalyzer:
         return AlignmentAnalyzer(
@@ -113,7 +119,7 @@ class AlignmentExtractor:
                     ) -> FeatureAlignment:
         """alignWithFeatures (alignment.go:357-409): clamp the lag frames
         to the data, run the analyzer."""
-        q, r = _tensor(query), _tensor(reference)
+        q, r = self._tensor(query), self._tensor(reference)
         q = q[:, None] if q.dim() == 1 else q
         r = r[:, None] if r.dim() == 1 else r
         min_frames = min(q.shape[0], r.shape[0])
@@ -224,7 +230,8 @@ class AlignmentExtractor:
                 analyzer = self._analyzer("correlation",
                                           self.max_lag_samples // self.config.hop_size)
                 result.consistency = analyzer.analyze_alignment_consistency(
-                    _tensor(qe.short_time_energy)[:, None], _tensor(re_.short_time_energy)[:, None],
+                    self._tensor(qe.short_time_energy)[:, None],
+                    self._tensor(re_.short_time_energy)[:, None],
                     sample_rate, self.alignment_config.consistency_trials)
         result.processing_time = (time.monotonic() - t0) * 1000.0
         return result
@@ -239,8 +246,8 @@ class AlignmentExtractor:
         length = min(n1 - start_q, n2 - start_r)
         if length < self.config.window_size * 4:
             return coarse_offset_seconds, 0.0
-        q = _tensor(query_pcm)[start_q: start_q + length]
-        r = _tensor(reference_pcm)[start_r: start_r + length]
+        q = self._tensor(query_pcm)[start_q: start_q + length]
+        r = self._tensor(reference_pcm)[start_r: start_r + length]
         max_lag = max(search_hops * self.config.hop_size, 8)
         window = _phat_cc(q, r, _next_pow2(length + max_lag), max_lag)
         idx = int(torch.argmax(window))
@@ -255,7 +262,8 @@ class AlignmentExtractor:
         max_lag = min(self.max_lag_samples, length - 1)
         if length < self.config.window_size * 4 or max_lag < 1:
             return 0.0, 0.0
-        window = _phat_cc(_tensor(query_pcm)[..., :length], _tensor(reference_pcm)[..., :length],
+        window = _phat_cc(self._tensor(query_pcm)[..., :length],
+                          self._tensor(reference_pcm)[..., :length],
                           _next_pow2(length + max_lag), max_lag)
         idx = int(torch.argmax(window))
         return -(idx - max_lag) / float(sample_rate), float(window[idx])
@@ -315,7 +323,7 @@ class AlignmentExtractor:
         """AlignAudioFiles (alignment.go:489-553): energy-series hybrid
         alignment, then the PCM verification (None: adaptive, on a comb-
         ambiguous or low-overlap answer; 1: never; K > 1: always)."""
-        query_pcm, reference_pcm = _tensor(query_pcm), _tensor(reference_pcm)
+        query_pcm, reference_pcm = self._tensor(query_pcm), self._tensor(reference_pcm)
         hop = self.config.hop_size
         q = short_time_energy(query_pcm, self.config.window_size, hop)
         r = short_time_energy(reference_pcm, self.config.window_size, hop)

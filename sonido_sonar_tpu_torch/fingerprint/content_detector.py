@@ -28,6 +28,7 @@ import torch
 
 from sonido_sonar_tpu_torch.config.config import ContentAwareConfig, ContentType
 from sonido_sonar_tpu_torch.io.audio import AudioData, AudioMetadata, host_pcm
+from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, as_float32
 from sonido_sonar_tpu_torch.ops.temporal import framed_sum_hopblocks
 
 _MUSIC_GENRES = [
@@ -241,10 +242,14 @@ def batched_acoustic_features(pcm: torch.Tensor, sample_rate: int) -> torch.Tens
 
 
 class ContentDetector:
-    """ContentDetector (content_detector.go:19-118)."""
+    """ContentDetector (content_detector.go:19-118). The batch path's
+    feature pass runs on `device` for clips given as numpy (the card
+    unless the caller asks for the CPU)."""
 
-    def __init__(self, config: Optional[ContentAwareConfig] = None):
+    def __init__(self, config: Optional[ContentAwareConfig] = None,
+                 device: Device = DEFAULT_DEVICE):
         self.config = config or ContentAwareConfig()
+        self.device = torch.device(device)
 
     def detect_content_type(self, audio: AudioData) -> ContentType:
         """DetectContentType (content_detector.go:31-69)."""
@@ -295,8 +300,8 @@ class ContentDetector:
         rows = []
         if need:
             if pcm_device is None:
-                pcm_device = torch.from_numpy(
-                    np.stack([host_pcm(audios[i].pcm).astype(np.float32) for i in need])
+                pcm_device = as_float32(
+                    np.stack([host_pcm(audios[i].pcm) for i in need]), self.device
                 )
                 rows = list(range(len(need)))
             else:

@@ -11,7 +11,8 @@ Reference parity: fingerprint/fingerprint.go —
 The per-clip and the batched path run the same extractor program
 (`extractors/programs.py`, `parallel/pipeline.py`), so a batch equals its
 clips fingerprinted one by one. Compute runs where the PCM is: a tensor
-stays on its device, numpy PCM becomes a CPU tensor.
+stays on its device, numpy PCM goes to the generator's `device` (the card
+unless the caller asks for the CPU; `utils/device.py`).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from sonido_sonar_tpu_torch.extractors.base import FeatureExtractorFactory
 from sonido_sonar_tpu_torch.extractors.features import ExtractedFeatures, map_tensors, to_numpy
 from sonido_sonar_tpu_torch.fingerprint.content_detector import ContentDetector
 from sonido_sonar_tpu_torch.io.audio import AudioData
+from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, as_float32
 
 _log = logging.getLogger(__name__)
 
@@ -95,21 +97,21 @@ class FingerprintGenerator:
         self,
         config: Optional[FingerprintConfig] = None,
         strict_reference_routing: bool = True,
+        device: Device = DEFAULT_DEVICE,
     ):
         self.config = config or default_fingerprint_config()
+        self.device = torch.device(device)
         self.content_manager = ContentAwareConfigManager(self.config)
-        self.content_detector = ContentDetector(self.config.content_aware)
+        self.content_detector = ContentDetector(self.config.content_aware, device=self.device)
         self.extractor_factory = FeatureExtractorFactory(strict_reference_routing)
         # speculative routing: the detected type of the last all-one-type
         # batch (None after a mixed batch or on a cold start)
         self._spec_ct: Optional[ContentType] = None
 
-    @staticmethod
-    def _as_tensor(pcm) -> torch.Tensor:
-        """[.., N] PCM as a float32 tensor on its own device (numpy: the CPU)."""
-        if isinstance(pcm, torch.Tensor):
-            return pcm.to(torch.float32)
-        return torch.from_numpy(np.asarray(pcm, dtype=np.float32))
+    def _as_tensor(self, pcm) -> torch.Tensor:
+        """[.., N] PCM as a float32 tensor: a tensor on its own device,
+        numpy on the generator's device."""
+        return as_float32(pcm, self.device)
 
     @staticmethod
     def _explicit_type(audio: AudioData) -> ContentType:

@@ -10,19 +10,21 @@ kept part shifts left, the chunk lands at the tail); `measure()` and
 the CUDA fill and backtrack kernels on a CUDA device.
 
 The windows own their buffers: a push copies the chunk in, so changing
-the pushed array afterwards never changes a window.
+the pushed array afterwards never changes a window. `device` defaults to
+the card; the CPU runs only when the caller asks for it (`utils/device.py`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Union
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from sonido_sonar_tpu_torch.config.config import AlignmentConfig, FeatureConfig
 from sonido_sonar_tpu_torch.logging import get_global_logger
+from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, as_float32
 from sonido_sonar_tpu_torch.utils.metrics import get_global_metrics
 
 _METHOD_NAMES = {0: "energy_correlation", 1: "hybrid_correlation", 2: "hybrid_dtw"}
@@ -40,7 +42,7 @@ class LatencyMeasurement:
 class _RollingWindow:
     """Rolling PCM window of one stream side: [W], or [N, W] for a fleet."""
 
-    def __init__(self, window: int, n_streams: int = 0, device: Union[str, torch.device] = "cpu"):
+    def __init__(self, window: int, n_streams: int = 0, device: Device = DEFAULT_DEVICE):
         self.window = window
         self.shape = (window,) if n_streams == 0 else (n_streams, window)
         self.device = torch.device(device)
@@ -56,11 +58,11 @@ class _RollingWindow:
         """Append a chunk: to row `row` of a fleet buffer, or to every row
         ([N, L], or one [L] chunk for all) when row is None. Returns the
         chunk length."""
-        x = torch.as_tensor(pcm)
+        x = as_float32(pcm, self.device)
         n = int(x.shape[-1])
         if n == 0:
             return 0
-        x = x.to(self.device, torch.float32)
+        x = x.to(self.device)
         buf = self._ensure()
         dst = buf if row is None else buf[row]
         w = self.window
@@ -102,9 +104,10 @@ class LatencyMonitor:
     alignment_config: AlignmentConfig = field(default_factory=AlignmentConfig)
     window_seconds: float = 60.0
     max_lag_seconds: float = 30.0
-    device: Union[str, torch.device] = "cpu"
+    device: Device = DEFAULT_DEVICE
 
     def __post_init__(self) -> None:
+        self.device = torch.device(self.device)
         self._sr = self.feature_config.sample_rate
         n = int(self.window_seconds * self._sr)
         self._window = n
@@ -191,9 +194,10 @@ class FleetMonitor:
     window_seconds: float = 60.0
     max_lag_seconds: float = 30.0
     measure_batch: int = 32
-    device: Union[str, torch.device] = "cpu"
+    device: Device = DEFAULT_DEVICE
 
     def __post_init__(self) -> None:
+        self.device = torch.device(self.device)
         self._sr = self.feature_config.sample_rate
         n = int(self.window_seconds * self._sr)
         self._window = n

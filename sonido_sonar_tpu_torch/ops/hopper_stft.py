@@ -1,10 +1,12 @@
-"""K1: fused STFT magnitude + aux epilogue on Hopper — the wrapper, its
-plain PyTorch version and its launch counter.
+"""K1: fused STFT magnitude + aux epilogue on Hopper, and K10, its
+feature epilogue — the wrapper, its plain PyTorch version and its launch
+counters.
 
 Counterpart of `sonido_sonar_tpu/ops/pallas_stft.py`
-(`stft_magnitude_pallas(with_aux=True, pre_emph=...)`); the kernel is
-`csrc/stft.cu`. For a CPU tensor the wrapper runs the plain version; for
-a CUDA tensor it launches the kernel or raises — nothing falls back.
+(`stft_magnitude_pallas(with_aux=True, pre_emph=..., with_features=...)`);
+the kernel is `csrc/stft.cu`. For a CPU tensor the wrapper runs the plain
+version; for a CUDA tensor it launches the kernel or raises — nothing
+falls back.
 
 Outputs: magnitude [B, T, F] and an aux dict of [B, T] series:
   rms               sqrt(mean(frame^2)) of the pre-emphasized frame
@@ -13,21 +15,34 @@ Outputs: magnitude [B, T, F] and an aux dict of [B, T] series:
                     total (clamped to F-1), 0 where the total is 0
   low_energy_ratio  power in bins [0, F//4) over the total, 0 where the total is 0
   high_energy_ratio power in bins [F//4, F) over the total, 0 where the total is 0
+
+With `with_features=True` a third output, feat [..., T, 43], carries per
+frame (FEAT_LANES; the JAX kernel's lanes 0-42):
+  mel       lanes 0-25: power @ mel_filterbank(26, W, sr, 0, sr/2).T
+  chroma    lanes 26-37: the chroma-STFT fold of the power, unit-sum
+            normalized (ops/chroma.chroma_from_magnitude)
+  centroid, bandwidth, flatness, crest, slope  lanes 38-42: the
+            descriptor bundle's values (ops/spectral.frame_descriptors),
+            bandwidth by its second pass over (f - centroid)^2 m
+The JAX kernel's lanes 43-63 are scratch for its moment matmuls
+("overwritten or ignored", pallas_stft.py:50-65); the port emits 43 lanes.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from sonido_sonar_tpu_torch import _build
 from sonido_sonar_tpu_torch.config.config import WindowType
+from sonido_sonar_tpu_torch.ops import spectral as S
+from sonido_sonar_tpu_torch.ops.chroma import chroma_fold_matrix, chroma_normalize
 from sonido_sonar_tpu_torch.ops.filters import pre_emphasis
 from sonido_sonar_tpu_torch.ops.framing import frame_signal, kernel_signal
-from sonido_sonar_tpu_torch.ops.spectral import zero_crossings
+from sonido_sonar_tpu_torch.ops.mel import mel_filterbank
 from sonido_sonar_tpu_torch.ops.stft import stft
 from sonido_sonar_tpu_torch.ops.tables import device_table
 from sonido_sonar_tpu_torch.ops.windows import make_window
@@ -35,6 +50,17 @@ from sonido_sonar_tpu_torch.ops.windows import make_window
 AUX_KEYS = (
     "rms", "zero_crossings", "rolloff_bin", "low_energy_ratio", "high_energy_ratio",
 )
+FEAT_LANES = {
+    "mel": (0, 26),
+    "chroma": (26, 38),
+    "spectral_centroid": 38,
+    "spectral_bandwidth": 39,
+    "spectral_flatness": 40,
+    "spectral_crest": 41,
+    "spectral_slope": 42,
+}
+N_FEAT = 43
+_N_MEL = 26
 _EPS = 1e-10
 _ROLLOFF = 0.85
 
@@ -46,15 +72,70 @@ def _twiddles(window_size: int) -> np.ndarray:
     return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=8)
+def feature_tables(f_bins: int, sample_rate: int, window_size: int) -> Tuple[np.ndarray, ...]:
+    """The K10 epilogue's constants, from the numpy builders of the plain
+    version: the 26 mel filters over 0..sr/2 and the 12-class chroma fold
+    (the tables mfcc() and chroma_from_magnitude() read) as a compressed
+    sparse row table (row_ptr int32 [39], bin int32 [nnz], weight float32
+    [nnz]; a mel filter is a triangle over a run of bins and a bin folds
+    into at most one chroma class, so nnz ~ 2F), and [F, 2] float32 of
+    (frequency, log10 frequency or 0 at f = 0), built in float64."""
+    w = np.concatenate([
+        mel_filterbank(_N_MEL, window_size, sample_rate, 0.0, sample_rate / 2.0),
+        chroma_fold_matrix(f_bins, sample_rate, window_size),
+    ])
+    nz = [np.flatnonzero(row) for row in w]
+    row_ptr = np.concatenate([[0], np.cumsum([len(z) for z in nz])]).astype(np.int32)
+    bins = np.concatenate(nz).astype(np.int32)
+    weights = np.concatenate([row[z] for row, z in zip(w, nz)]).astype(np.float32)
+    freqs = S._freq_bins(f_bins, sample_rate)
+    f64 = freqs.astype(np.float64)
+    logf = np.where(f64 > 0, np.log10(np.maximum(f64, _EPS)), 0.0)
+    freq_logf = np.stack([freqs, logf.astype(np.float32)], axis=1)
+    return row_ptr, bins, weights, np.ascontiguousarray(freq_logf)
+
+
+@functools.lru_cache(maxsize=16)
+def _feature_tables_on(f_bins: int, sample_rate: int, window_size: int, device: torch.device):
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in feature_tables(f_bins, sample_rate, window_size))
+
+
+def frame_features(magnitude: torch.Tensor, sample_rate: int, window_size: int) -> torch.Tensor:
+    """Plain version of the K10 epilogue over [..., T, F] magnitudes ->
+    feat [..., T, 43] (FEAT_LANES): mel energies, the normalized chroma
+    fold (pallas_stft.py:405-409) and the five finished descriptors."""
+    dev = magnitude.device
+    f_bins = magnitude.shape[-1]
+    power = magnitude * magnitude
+    # the tables, and so the products, of ops/mfcc.mfcc and
+    # ops/chroma.chroma_from_magnitude at their defaults
+    fb = device_table(
+        mel_filterbank, (_N_MEL, window_size, sample_rate, 0.0, sample_rate / 2.0), dev)
+    fold = device_table(
+        chroma_fold_matrix, (f_bins, sample_rate, window_size, 440.0, 80.0, 8000.0), dev)
+    desc = S.frame_descriptors(magnitude, sample_rate)
+    lanes = [desc[k] for k, idx in FEAT_LANES.items() if isinstance(idx, int)]
+    return torch.cat(
+        [torch.matmul(power, fb.T), chroma_normalize(torch.matmul(power, fold.T)),
+         torch.stack(lanes, dim=-1)],
+        dim=-1,
+    )
+
+
 def stft_magnitude_plain(
     signal: torch.Tensor,
     window_size: int = 1024,
     hop_size: int = 256,
     window_type: WindowType = WindowType.HANN,
     pre_emph: float = 0.0,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    with_features: bool = False,
+    sample_rate: int = 44100,
+) -> Tuple[torch.Tensor, ...]:
     """Plain version of K1: pre-emphasis, DFT-matmul STFT, then the aux
-    series from the frames and a cumulative power sum."""
+    series from the frames and a cumulative power sum; with features, the
+    plain K10 epilogue (`frame_features`) as a third output."""
     x = signal.to(torch.float32)
     if pre_emph != 0.0:
         x = pre_emphasis(x, pre_emph)
@@ -74,7 +155,7 @@ def stft_magnitude_plain(
     denom = torch.clamp_min(total, _EPS)
     aux = {
         "rms": torch.sqrt(torch.mean(frames * frames, dim=-1)),
-        "zero_crossings": zero_crossings(frames),
+        "zero_crossings": S.zero_crossings(frames),
         "rolloff_bin": torch.where(pos, first.to(torch.float32), 0.0),
         "low_energy_ratio": torch.where(
             pos, torch.sum(power[..., :split], dim=-1) / denom, 0.0
@@ -83,6 +164,8 @@ def stft_magnitude_plain(
             pos, torch.sum(power[..., split:], dim=-1) / denom, 0.0
         ),
     }
+    if with_features:
+        return mag, aux, frame_features(mag, sample_rate, window_size)
     return mag, aux
 
 
@@ -92,15 +175,21 @@ def stft_magnitude_hopper(
     hop_size: int = 256,
     window_type: WindowType = WindowType.HANN,
     pre_emph: float = 0.0,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """[..., N] float32 -> (magnitude [..., T, F], aux dict of [..., T]).
+    with_features: bool = False,
+    sample_rate: int = 44100,
+) -> Tuple[torch.Tensor, ...]:
+    """[..., N] float32 -> (magnitude [..., T, F], aux dict of [..., T])
+    and, with `with_features`, feat [..., T, 43] (K10, at `sample_rate`).
 
-    CPU tensor: the plain version. CUDA tensor: the K1 kernel, which
-    takes a float32 contiguous signal and a power-of-two window in
-    [64, 2048]; anything else raises.
+    CPU tensor: the plain version. CUDA tensor: the K1 kernel (with the
+    K10 epilogue when asked), which takes a float32 contiguous signal and
+    a power-of-two window in [64, 2048]; anything else raises. A launch
+    with features gives the same magnitudes and aux bits as one without.
     """
     if signal.device.type == "cpu":
-        return stft_magnitude_plain(signal, window_size, hop_size, window_type, pre_emph)
+        return stft_magnitude_plain(
+            signal, window_size, hop_size, window_type, pre_emph, with_features, sample_rate
+        )
     if signal.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {signal.device}")
     if window_size < 64 or window_size > 2048 or window_size & (window_size - 1):
@@ -112,16 +201,32 @@ def stft_magnitude_hopper(
     aux = torch.empty((len(AUX_KEYS), b, t), dtype=torch.float32, device=dev)
     window = device_table(make_window, (WindowType(window_type), window_size), dev)
     twiddle = device_table(_twiddles, (window_size,), dev)
+    geometry = (b, sig.shape[1], t, window_size, hop_size, float(pre_emph))
     with torch.cuda.device(dev):
-        _build.call(
-            "sonido_stft_aux", sig.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
-            mag.data_ptr(), aux.data_ptr(), b, sig.shape[1], t, window_size, hop_size,
-            float(pre_emph), torch.cuda.current_stream(dev).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if with_features:
+            feat = torch.empty((b, t, N_FEAT), dtype=torch.float32, device=dev)
+            row_ptr, bins, weights, freq_logf = _feature_tables_on(
+                f_bins, int(sample_rate), window_size, dev)
+            _build.call(
+                "sonido_stft_features", sig.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
+                mag.data_ptr(), aux.data_ptr(), feat.data_ptr(), row_ptr.data_ptr(),
+                bins.data_ptr(), weights.data_ptr(), freq_logf.data_ptr(), *geometry, stream,
+            )
+        else:
+            _build.call(
+                "sonido_stft_aux", sig.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
+                mag.data_ptr(), aux.data_ptr(), *geometry, stream,
+            )
     stft_magnitude_hopper.launches += 1
+    stft_magnitude_hopper.feat_launches += int(with_features)
     lead = signal.shape[:-1]
     mag = mag.view(lead + (t, f_bins))
-    return mag, {k: v.view(lead + (t,)) for k, v in zip(AUX_KEYS, aux.unbind(0))}
+    aux_dict = {k: v.view(lead + (t,)) for k, v in zip(AUX_KEYS, aux.unbind(0))}
+    if with_features:
+        return mag, aux_dict, feat.view(lead + (t, N_FEAT))
+    return mag, aux_dict
 
 
-stft_magnitude_hopper.launches = 0
+stft_magnitude_hopper.launches = 0       # every launch
+stft_magnitude_hopper.feat_launches = 0  # the launches with the K10 feature epilogue

@@ -1,11 +1,12 @@
-"""K2: fused YIN pitch on Hopper — the wrapper, its plain PyTorch version
-and its launch counter.
+"""K2: fused YIN pitch on Hopper, and K3, its difference rows alone —
+the wrappers, their plain PyTorch versions and their launch counters.
 
 Counterpart of `sonido_sonar_tpu/ops/pallas_yin.py` (`yin_pitch_pallas`,
-with its period-amplitude option); the kernel is `csrc/yin.cu`. For a
-CPU tensor the wrapper runs the plain version (pre-emphasis, framing,
-`ops/pitch.yin_pitch`, and the period amplitude over the frames); for a
-CUDA tensor it launches the kernel or raises — nothing falls back.
+with its period-amplitude option, and `yin_difference_pallas`); the
+kernels are `csrc/yin.cu`. For a CPU tensor a wrapper runs the plain
+version (pre-emphasis, framing, `ops/pitch.yin_pitch`, and the period
+amplitude over the frames; framing and `ops/pitch._yin_difference`); for
+a CUDA tensor it launches the kernel or raises — nothing falls back.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from sonido_sonar_tpu_torch import _build
 from sonido_sonar_tpu_torch.ops.filters import pre_emphasis
 from sonido_sonar_tpu_torch.ops.framing import frame_signal, kernel_signal
-from sonido_sonar_tpu_torch.ops.pitch import PitchParams, yin_pitch
+from sonido_sonar_tpu_torch.ops.pitch import PitchParams, _yin_difference, yin_pitch
 
 KERNEL_WINDOWS = (256, 512, 1024, 2048)
 _EPS = 1e-10
@@ -121,3 +122,44 @@ def yin_pitch_hopper(
 
 yin_pitch_hopper.launches = 0      # every launch
 yin_pitch_hopper.amp_launches = 0  # the launches with the period amplitude
+
+
+def yin_difference_plain(
+    signal: torch.Tensor, window_size: int = 1024, hop_size: int = 512
+) -> torch.Tensor:
+    """Plain version of K3: the frames' difference rows, [..., N] ->
+    [..., T, W/2], no pre-emphasis."""
+    return _yin_difference(frame_signal(signal.to(torch.float32), window_size, hop_size))
+
+
+def yin_difference_hopper(
+    signal: torch.Tensor, window_size: int = 1024, hop_size: int = 512
+) -> torch.Tensor:
+    """[..., N] float32 -> d [..., T, W/2] with d(tau) = sum_{j<W/2}
+    (x[j] - x[j+tau])^2 per frame (pallas_yin.py:162-168; no
+    pre-emphasis).
+
+    CPU tensor: the plain version. CUDA tensor: the K3 kernel, which takes
+    a float32 contiguous signal and a window in KERNEL_WINDOWS; anything
+    else raises.
+    """
+    if signal.device.type == "cpu":
+        return yin_difference_plain(signal, window_size, hop_size)
+    if signal.device.type != "cuda":
+        raise ValueError(f"no K3 kernel for device {signal.device}")
+    if window_size not in KERNEL_WINDOWS:
+        raise ValueError(f"K3 needs a window in {KERNEL_WINDOWS}, got {window_size}")
+    sig, b, t = kernel_signal(signal, window_size, hop_size)
+    dev = signal.device
+    h = window_size // 2
+    d = torch.empty((b, t, h), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _build.call(
+            "sonido_yin_difference", sig.data_ptr(), d.data_ptr(), b, sig.shape[1], t,
+            window_size, hop_size, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    yin_difference_hopper.launches += 1
+    return d.view(signal.shape[:-1] + (t, h))
+
+
+yin_difference_hopper.launches = 0

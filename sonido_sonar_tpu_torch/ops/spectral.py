@@ -111,18 +111,13 @@ def zcr_from_signal(
     return counts.to(torch.float32) / (window_size / float(sample_rate))
 
 
-def spectral_descriptor_bundle(
-    magnitude: torch.Tensor,
-    sample_rate: int,
-    rolloff_threshold: float = 0.85,
-    skip_rolloff: bool = False,
-) -> dict:
-    """Centroid, rolloff, bandwidth, flatness, crest, slope and flux
-    from shared passes over [..., T, F] magnitudes, with the same
-    expressions and masks as the JAX bundle. `skip_rolloff=True` leaves
-    rolloff out, for callers that take it from the K1 kernel's epilogue."""
-    from sonido_sonar_tpu_torch.ops.stft import spectral_flux
-
+def _frame_descriptors(
+    magnitude: torch.Tensor, sample_rate: int
+) -> Tuple[dict, torch.Tensor, torch.Tensor]:
+    """(centroid, bandwidth, flatness, crest and slope of each frame,
+    the power, the frame's power sum) over [..., T, F] magnitudes, with the same
+    expressions and masks as the JAX bundle (spectral.py:510-577);
+    bandwidth takes the bundle's second pass over (f - centroid)^2 m."""
     m = magnitude
     n_bins = m.shape[-1]
     freqs = device_table(_freq_bins, (n_bins, sample_rate), m.device)
@@ -168,17 +163,50 @@ def spectral_descriptor_bundle(
     bandwidth = torch.where(
         m_sum > 0, torch.sqrt(bw_num / torch.clamp_min(m_sum, _EPS)), 0.0
     )
-
     out = {
         "spectral_centroid": centroid,
         "spectral_bandwidth": bandwidth,
         "spectral_flatness": flatness,
         "spectral_crest": crest,
         "spectral_slope": slope,
-        "spectral_flux": spectral_flux(m),
     }
+    return out, power, p_sum
+
+
+def frame_descriptors(magnitude: torch.Tensor, sample_rate: int) -> dict:
+    """Centroid, bandwidth, flatness, crest and slope of each frame of
+    [..., T, F] magnitudes: the descriptor bundle without flux and rolloff."""
+    return _frame_descriptors(magnitude, sample_rate)[0]
+
+
+def spectral_descriptor_bundle(
+    magnitude: torch.Tensor,
+    sample_rate: int,
+    rolloff_threshold: float = 0.85,
+    skip_rolloff: bool = False,
+) -> dict:
+    """Centroid, rolloff, bandwidth, flatness, crest, slope and flux
+    from shared passes over [..., T, F] magnitudes, with the same
+    expressions and masks as the JAX bundle. `skip_rolloff=True` leaves
+    rolloff out, for callers that take it from the K1 kernel's epilogue."""
+    from sonido_sonar_tpu_torch.ops.stft import spectral_flux
+
+    m = magnitude
+    out, power, p_sum = _frame_descriptors(m, sample_rate)
+    out["spectral_flux"] = spectral_flux(m)
     if not skip_rolloff:
+        freqs = device_table(_freq_bins, (m.shape[-1], sample_rate), m.device)
         reached = torch.cumsum(power, dim=-1) >= rolloff_threshold * p_sum[..., None]
         idx = torch.argmax(reached.to(torch.uint8), dim=-1)
         out["spectral_rolloff"] = torch.where(p_sum > 0, freqs[idx], 0.0)
     return out
+
+
+def descriptors_from_feat(feat: torch.Tensor) -> dict:
+    """The descriptor bundle's centroid, bandwidth, flatness, crest and
+    slope from the K10 feature-epilogue lanes ([..., T, 43] laid out per
+    `ops.hopper_stft.FEAT_LANES`; JAX `spectral.py:621-636`): the kernel
+    finished them, so this slices the lanes out."""
+    from sonido_sonar_tpu_torch.ops.hopper_stft import FEAT_LANES
+
+    return {k: feat[..., idx] for k, idx in FEAT_LANES.items() if isinstance(idx, int)}

@@ -6,7 +6,10 @@ Counterpart of `sonido_sonar_tpu/ops/stats/batched_alignment.py`:
   -> the 0.7 acceptance gate (alignment.go:318-321)
   -> banded DTW + path metrics (alignment.go:379-607)
   -> the consistency-gated winner and the verbatim blends.
-Tensors in, tensors out, on the inputs' device. The banded DTW of
+Tensors in, tensors out, on the inputs' device; the entry points that
+also take numpy (`batched_hybrid_align`, `batched_hybrid_align_device`,
+`batched_align_audio`) put it on their `device` argument, the card unless
+the caller asks for the CPU (`utils/device.py`). The banded DTW of
 `dtw_align_batch` is one fill launch and one backtrack launch over the
 whole batch (`ops/stats/hopper_dtw.py`, `ops/stats/hopper_backtrack.py`);
 the TPU package's power-of-two sub-batches, which kept multi-GB band
@@ -36,6 +39,7 @@ from sonido_sonar_tpu_torch.ops.stats.alignment import (
 )
 from sonido_sonar_tpu_torch.ops.stats.correlation import _peak_metrics, _take
 from sonido_sonar_tpu_torch.ops.stats.hopper_backtrack import backtrack_banded_hopper
+from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, as_float32
 from sonido_sonar_tpu_torch.ops.stats.hopper_dtw import fill_banded_hopper
 
 _EPS = 1e-10
@@ -259,8 +263,8 @@ def _lag_setup(q: torch.Tensor, r: torch.Tensor, max_lag: int, hop_size: int, sa
 
 def batched_hybrid_align(query_energy: torch.Tensor, reference_energy: torch.Tensor,
                          max_lag: int, hop_size: int, sample_rate: int, dtw_band: int = 50,
-                         skip_dtw_if_confident: bool = True, top_k: int = 1
-                         ) -> Dict[str, torch.Tensor]:
+                         skip_dtw_if_confident: bool = True, top_k: int = 1,
+                         device: Device = DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
     """Hybrid alignment of B pairs of 1-D series, the policy of
     AlignmentAnalyzer._align_hybrid: accept xcorr when its unpenalized
     confidence > 0.7; otherwise banded DTW, its confidence scaled by
@@ -274,8 +278,8 @@ def batched_hybrid_align(query_energy: torch.Tensor, reference_energy: torch.Ten
     correlation accepted, 1 hybrid/corr winner, 2 hybrid/DTW winner),
     and topk_lags [B, top_k] when top_k > 1.
     """
-    q = torch.as_tensor(query_energy).to(torch.float32)
-    r = torch.as_tensor(reference_energy).to(q.device, torch.float32)
+    q = as_float32(query_energy, device)
+    r = as_float32(reference_energy, device).to(q.device)
     t1, t2, max_lag, min_sep = _lag_setup(q, r, max_lag, hop_size, sample_rate)
     xc = xcorr_align_batch(q, r, max_lag, hop_size, t1, t2, min_sep=min_sep, top_k=top_k)
     corr_off, corr_conf = xc["offset_samples"], xc["confidence"]
@@ -312,13 +316,14 @@ def _hybrid_select(xc: dict, dt: dict, need_dtw: torch.Tensor) -> Dict[str, torc
 
 def batched_hybrid_align_device(query_energy: torch.Tensor, reference_energy: torch.Tensor,
                                 max_lag: int, hop_size: int, sample_rate: int,
-                                dtw_band: int = 50) -> Dict[str, torch.Tensor]:
+                                dtw_band: int = 50, device: Device = DEFAULT_DEVICE
+                                ) -> Dict[str, torch.Tensor]:
     """Sync-free hybrid alignment: both passes always run and the winner
     select stays on the device, so nothing waits for the host. Same
     policy and outputs as batched_hybrid_align (offset_seconds here in
     float32, as JAX computes it on the device)."""
-    q = torch.as_tensor(query_energy).to(torch.float32)
-    r = torch.as_tensor(reference_energy).to(q.device, torch.float32)
+    q = as_float32(query_energy, device)
+    r = as_float32(reference_energy, device).to(q.device)
     t1, t2, max_lag, min_sep = _lag_setup(q, r, max_lag, hop_size, sample_rate)
     xc = xcorr_align_batch(q, r, max_lag, hop_size, t1, t2, min_sep=min_sep)
     dt = dtw_align_batch(q, r, _dtw_band(dtw_band, max_lag, t1, t2), hop_size, t1, t2)
@@ -333,7 +338,8 @@ def batched_align_audio(query_pcm: torch.Tensor, reference_pcm: torch.Tensor, sa
                         window_size: int = 2048, hop_size: int = 512,
                         max_lag_seconds: float = 30.0, dtw_band: int = 50, refine: bool = False,
                         verify: Optional[bool] = None,
-                        max_offset_samples: int = 0) -> Dict[str, torch.Tensor]:
+                        max_offset_samples: int = 0,
+                        device: Device = DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
     """AlignAudio for B pairs (alignment.go:109-130): short-time RMS
     energy series -> batched hybrid alignment, the PCM verification of
     comb-ambiguous or low-overlap pairs (verify None: adaptive; True:
@@ -353,8 +359,8 @@ def batched_align_audio(query_pcm: torch.Tensor, reference_pcm: torch.Tensor, sa
         batched_refine_offsets,
     )
 
-    q = torch.as_tensor(query_pcm).to(torch.float32)
-    r = torch.as_tensor(reference_pcm).to(q.device, torch.float32)
+    q = as_float32(query_pcm, device)
+    r = as_float32(reference_pcm, device).to(q.device)
     qe = short_time_energy(q, window_size, hop_size)
     re_ = short_time_energy(r, window_size, hop_size)
     max_lag = int(max_lag_seconds * sample_rate) // hop_size

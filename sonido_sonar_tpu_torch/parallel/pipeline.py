@@ -7,7 +7,9 @@ Counterpart of `sonido_sonar_tpu/parallel/pipeline.py`:
   fused-kernel branch on every device: the K1 kernel (`ops/hopper_stft.py`)
   gives the magnitudes together with rms, zero crossings, the rolloff bin
   and the band ratios, and the K2 kernel (`ops/hopper_yin.py`) gives pitch
-  from the raw PCM at 1024/512.
+  from the raw PCM at 1024/512. Its feature-epilogue configuration
+  (`SONIDO_ENABLE_FEAT_EPILOGUE`, `feat_epilogue_enabled`) takes mel,
+  chroma and five descriptors from K1's K10 epilogue instead.
 - `batched_speech_analysis`, `batched_speech_extractor_features`: the
   speech extractor's whole payload (K1, K2, and K2 with period amplitude
   in the voice-quality chain).
@@ -22,6 +24,7 @@ On a CPU tensor every kernel runs its plain PyTorch version.
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import torch
@@ -32,8 +35,8 @@ from sonido_sonar_tpu_torch.ops import temporal as T
 from sonido_sonar_tpu_torch.ops.chroma import chroma_from_magnitude, key_correlations
 from sonido_sonar_tpu_torch.ops.filters import dc_removal, pre_emphasis_for_content
 from sonido_sonar_tpu_torch.ops.framing import num_frames
-from sonido_sonar_tpu_torch.ops.hopper_stft import stft_magnitude_hopper
-from sonido_sonar_tpu_torch.ops.mfcc import MFCCParams, mfcc
+from sonido_sonar_tpu_torch.ops.hopper_stft import FEAT_LANES, stft_magnitude_hopper
+from sonido_sonar_tpu_torch.ops.mfcc import MFCCParams, mfcc, mfcc_from_mel
 from sonido_sonar_tpu_torch.ops.pitch import PitchParams, yin_pitch, yin_pitch_from_signal
 from sonido_sonar_tpu_torch.ops.speech import analyze_speech, hnr_acf
 from sonido_sonar_tpu_torch.ops.stft import spectral_flux
@@ -42,6 +45,7 @@ from sonido_sonar_tpu_torch.ops.temporal import energy_variance
 from sonido_sonar_tpu_torch.ops.tonal import chord_matrix
 
 _EPS = 1e-10
+FEAT_EPILOGUE_ENV = "SONIDO_ENABLE_FEAT_EPILOGUE"
 
 
 def require_fp32_matmuls(pcm: torch.Tensor, what: str) -> None:
@@ -52,6 +56,18 @@ def require_fp32_matmuls(pcm: torch.Tensor, what: str) -> None:
             f"{what} needs true float32 matmuls: "
             "set torch.backends.cuda.matmul.allow_tf32 = False"
         )
+
+
+def feat_epilogue_enabled(mfcc_coefficients: int = 13) -> bool:
+    """Whether `batched_fingerprint_features` takes its feature-epilogue
+    configuration: SONIDO_ENABLE_FEAT_EPILOGUE set to a non-empty value and
+    MFCC over the epilogue's 26 mel filters (JAX `pipeline.py:92-98`; the
+    port always takes the kernel branch, so "the Pallas kernel is
+    available" holds on every device). Read on every call: JAX reads it
+    once, at trace time, and its compiled program keeps the answer
+    (`pipeline.py:87-91`); the port has no trace cache."""
+    return (bool(os.environ.get(FEAT_EPILOGUE_ENV))
+            and MFCCParams(num_coefficients=mfcc_coefficients).num_mel_filters == 26)
 
 
 def batched_fingerprint_features(
@@ -75,20 +91,36 @@ def batched_fingerprint_features(
     On a CUDA device the float32 matmuls (DFT, mel, DCT, chroma fold)
     feed log and ratio math and must run in true float32, so TF32 must be
     off (`torch.backends.cuda.matmul.allow_tf32 = False`, the default).
+
+    With the feature-epilogue configuration (`feat_epilogue_enabled`), K1
+    runs its K10 epilogue and MFCC, chroma and the five frame descriptors
+    come from its lanes (JAX `pipeline.py:119-141`); the keys, shapes and
+    dtypes are those of the default configuration.
     """
     require_fp32_matmuls(pcm, "batched_fingerprint_features")
     x = pcm.to(torch.float32).contiguous()
-    mag, aux = stft_magnitude_hopper(
-        x, window_size, hop_size, window_type, pre_emph=pre_emphasis_coeff
-    )
-
+    params = MFCCParams(num_coefficients=mfcc_coefficients)
     out: Dict[str, torch.Tensor] = {}
-    out["mfcc"] = mfcc(
-        mag, sample_rate, window_size, MFCCParams(num_coefficients=mfcc_coefficients)
-    )
-    if enable_chroma:
-        out["chroma"] = chroma_from_magnitude(mag, sample_rate, window_size)
-    out.update(S.spectral_descriptor_bundle(mag, sample_rate, skip_rolloff=True))
+    if feat_epilogue_enabled(mfcc_coefficients):
+        mag, aux, feat = stft_magnitude_hopper(
+            x, window_size, hop_size, window_type, pre_emph=pre_emphasis_coeff,
+            with_features=True, sample_rate=sample_rate,
+        )
+        lo, hi = FEAT_LANES["mel"]
+        out["mfcc"] = mfcc_from_mel(feat[..., lo:hi], params)
+        if enable_chroma:
+            clo, chi = FEAT_LANES["chroma"]
+            out["chroma"] = feat[..., clo:chi]
+        out.update(S.descriptors_from_feat(feat))
+        out["spectral_flux"] = spectral_flux(mag)
+    else:
+        mag, aux = stft_magnitude_hopper(
+            x, window_size, hop_size, window_type, pre_emph=pre_emphasis_coeff
+        )
+        out["mfcc"] = mfcc(mag, sample_rate, window_size, params)
+        if enable_chroma:
+            out["chroma"] = chroma_from_magnitude(mag, sample_rate, window_size)
+        out.update(S.spectral_descriptor_bundle(mag, sample_rate, skip_rolloff=True))
     if enable_contrast:
         out["spectral_contrast"] = S.spectral_contrast(mag, sample_rate, 6)
 

@@ -71,6 +71,40 @@ FEATURE_TOLERANCES = {
 }
 
 
+# K10, the feature epilogue: feat [..., T, 43], mel in lanes 0-25, chroma
+# in 26-37, then FEAT_DESCRIPTORS. On the same magnitudes (the kernel's
+# lanes against its plain version over the kernel's own magnitudes; the
+# port's plain lanes against JAX's epilogue over JAX's magnitudes) the
+# bounds are those JAX's tests hold its epilogue to against the XLA
+# functions (tests/test_pallas_stft.py:173-210): JAX sums mel, chroma and
+# the masked logs as bf16 hi/lo three-pass matmuls (~1.5e-5 relative) and
+# takes bandwidth by the moment expansion f2m - fm^2 / m. Descriptors
+# other than bandwidth: |got - ref| <= 2e-3 max(|ref|, 1).
+FEAT_DESCRIPTORS = ("spectral_centroid", "spectral_bandwidth", "spectral_flatness",
+                    "spectral_crest", "spectral_slope")
+FEAT_SAME_MAGNITUDES = {"mel": (1e-4, 1e-7), "chroma": (1e-3, 2e-5),
+                        "spectral_bandwidth": (1e-3, 2.0)}
+FEAT_DESCRIPTOR_SCALED_ATOL = 2e-3
+# Across two DFTs (a kernel against its plain version, the port against
+# JAX) the descriptors and chroma take FEATURE_TOLERANCES, and a mel
+# energy carries the magnitudes' error through 2 m dm summed over its
+# filter: beyond rtol 1e-4 of itself, at most 5.7e-9 of the largest mel
+# energy of the input (measured, port against JAX's kernel, 4 s of a
+# two-tone signal and 2-4 synth_pcm rows); bounded at 1e-6 of it.
+FEAT_MEL_ACROSS_DFTS = (1e-4, "scale:1e-6")
+# JAX's epilogue configuration against the port's (parallel/pipeline.py
+# :119-141): its chroma and bandwidth lanes at its own bounds above.
+FEAT_EPILOGUE_TOLERANCES = {"chroma": FEAT_SAME_MAGNITUDES["chroma"],
+                            "spectral_bandwidth": FEAT_SAME_MAGNITUDES["spectral_bandwidth"]}
+# K3, the YIN difference rows: the kernel's direct fp32 sums against the
+# E1 + S - 2r DFT formulation, 2e-4 of the largest |d| (the JAX kernel
+# tests' bound, tests/test_pallas_yin.py:35-45).
+YIN_DIFF_ATOL_SCALE = 2e-4
+# K9, the contrast band means: exact k-th values, so only the fp32 sums
+# of the selected powers differ from a sort's mean (~1e-7 relative);
+# 2e-5 is the JAX kernel tests' bound (tests/test_pallas_contrast.py:54).
+BAND_MEANS_RTOL = 2e-5
+
 # K2's period amplitude (pallas_yin.py:356-368): RMS over the first
 # plen = trunc(sr / pitch) samples. Where two pitches agree to ~3e-6
 # relative, plen still moves by one sample where sr / pitch sits at an
@@ -314,11 +348,14 @@ def check_stft_aux(mag, aux, ref_mag, ref_aux, near_zero) -> Report:
 
 
 def check_features(
-    got: dict, ref: dict, near_zero, sample_rate: int, window_size: int
+    got: dict, ref: dict, near_zero, sample_rate: int, window_size: int,
+    tolerances: dict = None,
 ) -> Report:
-    """Whole `batched_fingerprint_features` dicts, key by key."""
+    """Whole `batched_fingerprint_features` dicts, key by key;
+    `tolerances` replaces FEATURE_TOLERANCES' entries for its keys."""
     errors: Dict[str, float] = {}
     failures: List[str] = []
+    tol = {**FEATURE_TOLERANCES, **(tolerances or {})}
     if sorted(got) != sorted(ref):
         failures.append(f"keys differ: {sorted(set(got) ^ set(ref))}")
     for key in sorted(set(got) & set(ref)):
@@ -327,8 +364,8 @@ def check_features(
             failures.append(f"{key}: {g.dtype}{g.shape} != {r.dtype}{r.shape}")
         elif not np.isfinite(g).all():
             failures.append(f"{key}: non-finite values")
-        elif key in FEATURE_TOLERANCES:
-            _close(key, g, r, *FEATURE_TOLERANCES[key], errors, failures)
+        elif key in tol:
+            _close(key, g, r, *tol[key], errors, failures)
         elif key == "zcr":
             _zero_crossings(key, g, r, near_zero, errors, failures)
         elif key == "spectral_rolloff":
@@ -360,6 +397,49 @@ def check_period_amp(amp, ref_amp) -> Report:
     if errors["amp_miss_share"] > AMP_MISS_SHARE:
         failures.append(f"period amplitude: {errors['amp_miss_share']:.4f} of frames beyond "
                         f"rtol {AMP_RTOL} (limit {AMP_MISS_SHARE})")
+    return errors, failures
+
+
+def check_feat(feat, ref, same_magnitudes: bool) -> Report:
+    """K10 lanes [..., T, 43] against a reference: on the same magnitudes
+    (FEAT_SAME_MAGNITUDES) or across two DFTs (FEAT_MEL_ACROSS_DFTS and
+    FEATURE_TOLERANCES)."""
+    g = np.asarray(feat, np.float64)
+    r = np.asarray(ref, np.float64)
+    if g.shape != r.shape:
+        return {}, [f"feat: shape {g.shape} != {r.shape}"]
+    errors: Dict[str, float] = {}
+    failures: List[str] = []
+    if not np.isfinite(g).all():
+        failures.append("feat: non-finite values")
+    if same_magnitudes:
+        _close("mel", g[..., :26], r[..., :26], *FEAT_SAME_MAGNITUDES["mel"], errors, failures)
+        _close("chroma", g[..., 26:38], r[..., 26:38], *FEAT_SAME_MAGNITUDES["chroma"],
+               errors, failures)
+    else:
+        _close("mel", g[..., :26], r[..., :26], *FEAT_MEL_ACROSS_DFTS, errors, failures)
+        _close("chroma", g[..., 26:38], r[..., 26:38], *FEATURE_TOLERANCES["chroma"],
+               errors, failures)
+    for lane, key in enumerate(FEAT_DESCRIPTORS, start=38):
+        gk, rk = g[..., lane], r[..., lane]
+        if not same_magnitudes:
+            _close(key, gk, rk, *FEATURE_TOLERANCES[key], errors, failures)
+        elif key in FEAT_SAME_MAGNITUDES:
+            _close(key, gk, rk, *FEAT_SAME_MAGNITUDES[key], errors, failures)
+        else:
+            scale = np.maximum(np.abs(rk), 1.0)
+            _close(key, gk / scale, rk / scale, 0.0, FEAT_DESCRIPTOR_SCALED_ATOL,
+                   errors, failures)
+    return errors, failures
+
+
+def check_band_means(peak, valley, ref_peak, ref_valley) -> Report:
+    """K9's (peak, valley) [..., NB] against a reference, rtol
+    BAND_MEANS_RTOL (atol 1e-12 for the zero means)."""
+    errors: Dict[str, float] = {}
+    failures: List[str] = []
+    _close("peak", peak, ref_peak, BAND_MEANS_RTOL, 1e-12, errors, failures)
+    _close("valley", valley, ref_valley, BAND_MEANS_RTOL, 1e-12, errors, failures)
     return errors, failures
 
 

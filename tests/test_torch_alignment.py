@@ -292,7 +292,7 @@ def test_align_audio_files_matches_jax(lag, verify):
     jx = jext.AlignmentExtractor(JFeatureConfig(sample_rate=SR, window_size=WINDOW, hop_size=HOP),
                                  max_lag_seconds=2.0)
     tx = text.AlignmentExtractor(FeatureConfig(sample_rate=SR, window_size=WINDOW, hop_size=HOP),
-                                 max_lag_seconds=2.0)
+                                 max_lag_seconds=2.0, device="cpu")
     j = jx.align_audio_files(jnp.asarray(src), jnp.asarray(cdn), SR, verify_top_peaks=verify)
     t = tx.align_audio_files(_t(src), _t(cdn), SR, verify_top_peaks=verify)
     assert t.best_alignment.result.offset == j.best_alignment.result.offset
@@ -326,7 +326,7 @@ def test_extract_alignment_features_matches_jax():
     jx = jext.AlignmentExtractor(JFeatureConfig(sample_rate=SR, window_size=WINDOW, hop_size=HOP),
                                  max_lag_seconds=1.0)
     tx = text.AlignmentExtractor(FeatureConfig(sample_rate=SR, window_size=WINDOW, hop_size=HOP),
-                                 max_lag_seconds=1.0)
+                                 max_lag_seconds=1.0, device="cpu")
     jf = [JFeatures(energy_features=JEnergy(short_time_energy=jnp.asarray(e)),
                     chroma_features=jnp.asarray(c)) for e, c in feats.values()]
     tf = [ExtractedFeatures(energy_features=EnergyFeatures(short_time_energy=_t(e)),

@@ -186,3 +186,30 @@ def test_pre_emphasis(coef):
     ref = np.asarray(jfilters.pre_emphasis(jnp.asarray(x), coef))
     assert got[:, 0].tolist() == x[:, 0].tolist()
     np.testing.assert_allclose(got, ref, rtol=0, atol=np.spacing(np.abs(ref)).max())
+
+
+@pytest.mark.parametrize("f_bins,sr,w", [(513, 44100, 1024), (1025, 22050, 2048), (257, 16000, 512)])
+def test_k10_feature_tables_exact(f_bins, sr, w):
+    """The K10 epilogue's sparse table, expanded, is JAX's 26-filter mel
+    bank over 0..sr/2 and its chroma fold, and its frequency column JAX's
+    _freq_bins, exactly; log10 f is float64's, rounded once (0 at f = 0)."""
+    from sonido_sonar_tpu_torch.ops.hopper_stft import feature_tables
+
+    row_ptr, bins, weights, freq_logf = feature_tables(f_bins, sr, w)
+    assert row_ptr.dtype == bins.dtype == np.int32 and weights.dtype == np.float32
+    assert row_ptr.shape == (39,) and row_ptr[0] == 0 and row_ptr[-1] == bins.size
+    dense = np.zeros((38, f_bins), np.float64)
+    for o in range(38):
+        seg = slice(row_ptr[o], row_ptr[o + 1])
+        assert np.all(np.diff(bins[seg]) > 0)  # ascending bins, no repeats
+        dense[o, bins[seg]] = weights[seg]
+    ref = np.concatenate([
+        np.asarray(jmel.mel_filterbank(26, w, sr, 0.0, sr / 2.0), np.float64),
+        np.asarray(jchroma.chroma_fold_matrix(f_bins, sr, w), np.float64),
+    ])
+    np.testing.assert_array_equal(dense, ref)
+    freqs = np.asarray(jspectral._freq_bins(f_bins, sr))
+    _same(freq_logf[:, 0], freqs)
+    f64 = freqs.astype(np.float64)
+    want = np.where(f64 > 0, np.log10(np.maximum(f64, 1e-10)), 0.0).astype(np.float32)
+    _same(freq_logf[:, 1], want)

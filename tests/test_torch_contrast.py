@@ -1,0 +1,151 @@
+"""K9, the port's sort-free contrast band selection, held to the JAX
+package on the CPU.
+
+On a CPU tensor the wrapper runs its plain version (one sort per band);
+these tests hold it to JAX's Pallas kernel in interpret mode (as
+tests/test_pallas_contrast.py runs it), to a float64 numpy sort, and its
+band constants to JAX's. The CUDA kernel is held to the plain version on
+the card by chip_smoke.py (utils/parity.check_band_means).
+"""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
+
+import sonido_sonar_tpu.ops.pallas_contrast as jpc  # noqa: E402
+from sonido_sonar_tpu.ops.spectral import contrast_band_edges as j_edges  # noqa: E402
+from sonido_sonar_tpu_torch.ops import hopper_contrast  # noqa: E402
+from sonido_sonar_tpu_torch.ops.spectral import contrast_band_edges  # noqa: E402
+from sonido_sonar_tpu_torch.utils import parity  # noqa: E402
+
+torch.set_num_threads(1)
+SR = 44100
+means = hopper_contrast.band_select_means_hopper
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    orig = pl.pallas_call
+
+    def interp(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    monkeypatch.setattr(jpc.pl, "pallas_call", interp)
+
+
+def _mag(shape, seed=0):
+    return np.abs(np.random.default_rng(seed).standard_normal(shape)).astype(np.float32)
+
+
+def _sorted_means(mag, edges):
+    """float64 numpy: per band, the means of the top and bottom k powers."""
+    p = np.asarray(mag, np.float64) ** 2
+    f = p.shape[-1]
+    peak, valley = [], []
+    for b in range(len(edges) - 1):
+        lo, hi = edges[b], min(edges[b + 1], f)
+        if lo >= hi:
+            peak.append(np.zeros(p.shape[:-1]))
+            valley.append(np.zeros(p.shape[:-1]))
+            continue
+        k = max(int(0.2 * (hi - lo)), 1)
+        band = np.sort(p[..., lo:hi], axis=-1)
+        peak.append(band[..., -k:].mean(-1))
+        valley.append(band[..., :k].mean(-1))
+    return np.stack(peak, -1), np.stack(valley, -1)
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 513), (300, 257)])
+def test_k9_plain_matches_pallas_interpret(interpret, shape):
+    """rtol 2e-5, the JAX kernel tests' bound (tests/test_pallas_contrast.py
+    :33-55): JAX's 22-bit quantized search fills its tie bucket with the
+    bucket's mean (<= 2^-14 relative), the port takes a sort."""
+    mag = _mag(shape)
+    edges = contrast_band_edges(6, shape[-1], SR)
+    peak, valley = means(torch.from_numpy(mag), edges)
+    jpeak, jvalley = jpc.band_select_means_pallas(jnp.asarray(mag), edges)
+    assert peak.shape == shape[:-1] + (6,) and peak.dtype == torch.float32
+    errors, failures = parity.check_band_means(peak.numpy(), valley.numpy(),
+                                               np.asarray(jpeak), np.asarray(jvalley))
+    assert not failures, (failures, errors)
+
+
+def test_k9_ties_and_zeros_match_pallas_interpret(interpret):
+    """One band constant, the rest zero (tests/test_pallas_contrast.py
+    :58-73): the constant band's means are its power, the zero bands' 0,
+    exactly, in both packages."""
+    f = 513
+    edges = contrast_band_edges(6, f, SR)
+    mag = np.zeros((1, 16, f), np.float32)
+    mag[0, :, edges[3]:edges[4]] = 0.25
+    peak, valley = (t.numpy() for t in means(torch.from_numpy(mag), edges))
+    jpeak, jvalley = (np.asarray(t) for t in jpc.band_select_means_pallas(jnp.asarray(mag), edges))
+    for got in (peak, valley, jpeak, jvalley):
+        np.testing.assert_array_equal(got[0, :, 3], np.float32(0.0625))
+        np.testing.assert_array_equal(got[0, :, [0, 1, 2, 4, 5]], 0.0)
+
+
+@pytest.mark.parametrize("shape,bands", [((3, 40, 513), 6), ((50, 257), 4), ((7, 1025), 6)])
+def test_k9_plain_matches_a_float64_sort(shape, bands):
+    """The plain version is a float32 sort and mean: rtol 1e-6 of a
+    float64 numpy sort."""
+    mag = _mag(shape, seed=shape[-1])
+    mag[..., 5:9] = 0.0  # zeros inside a band
+    edges = contrast_band_edges(bands, shape[-1], SR)
+    peak, valley = means(torch.from_numpy(mag), edges)
+    want_peak, want_valley = _sorted_means(mag, edges)
+    np.testing.assert_allclose(peak.numpy(), want_peak, rtol=1e-6, atol=1e-12)
+    np.testing.assert_allclose(valley.numpy(), want_valley, rtol=1e-6, atol=1e-12)
+
+
+@pytest.mark.parametrize("edges,f", [
+    (None, 513), (None, 257), (None, 1025), ((0, 4, 4, 10, 600), 513), ((3, 9, 2, 50), 64),
+])
+def test_band_constants_equal_jax(edges, f):
+    """_band_constants bit for bit, degenerate and clipped bands included;
+    the kernel's (lo, hi, k) table is each indicator column's run."""
+    edges = edges or contrast_band_edges(6, f, SR)
+    if edges == contrast_band_edges(6, f, SR):
+        assert edges == j_edges(6, f, SR)
+    got = hopper_contrast._band_constants(tuple(edges), f)
+    ref = jpc._band_constants(tuple(edges), f)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    table = hopper_contrast.band_table(tuple(edges), f)
+    for b, (lo, hi, k) in enumerate(table.tolist()):
+        want_lo, want_hi = edges[b], min(edges[b + 1], f)
+        if want_lo >= want_hi:
+            assert (lo, hi, k) == (0, 0, 1)
+        else:
+            assert (lo, hi, k) == (want_lo, want_hi, max(int(0.2 * (want_hi - want_lo)), 1))
+
+
+def test_degenerate_bands_give_zero():
+    mag = _mag((4, 64))
+    peak, valley = means(torch.from_numpy(mag), (0, 4, 4, 10, 600))
+    assert torch.equal(peak[:, 1], torch.zeros(4)) and torch.equal(valley[:, 1], torch.zeros(4))
+    want_peak, want_valley = _sorted_means(mag, (0, 4, 4, 10, 600))
+    np.testing.assert_allclose(peak.numpy(), want_peak, rtol=1e-6)
+    np.testing.assert_allclose(valley.numpy(), want_valley, rtol=1e-6)
+
+
+def test_k9_wrapper_plain_on_cpu_raises_elsewhere():
+    mag = torch.from_numpy(_mag((2, 3, 10, 513)))
+    edges = contrast_band_edges(6, 513, SR)
+    before = means.launches
+    got = means(mag, edges)
+    ref = hopper_contrast.band_select_means_plain(mag, edges)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert means.launches == before
+    assert got[0].shape == (2, 3, 10, 6)
+    flat = means(mag.view(60, 513), edges)
+    assert all(torch.equal(a.view(2, 3, 10, 6), b) for a, b in zip(flat, got))
+    with pytest.raises(ValueError, match="no K9 kernel"):
+        means(torch.empty((4, 513), device="meta"), edges)

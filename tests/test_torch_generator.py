@@ -99,12 +99,12 @@ def test_acoustic_features_and_classification_match_jax(clips):
     np.testing.assert_allclose(got[:, [1, 2, 5, 6, 7, 8]], ref[:, [1, 2, 5, 6, 7, 8]], rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(got[:, 4], ref[:, 4], atol=1e-3)
     audios, jaudios = _pair(x)
-    types = tcd.ContentDetector().detect_batch(audios)
+    types = tcd.ContentDetector(device="cpu").detect_batch(audios)
     jtypes = jcd.ContentDetector().detect_batch(jaudios)
     assert [t.value for t in types] == [t.value for t in jtypes]
     assert {t.value for t in types} >= {"music", "news"}
     # the per-clip host path (float64 numpy) decides the same
-    det = tcd.ContentDetector()
+    det = tcd.ContentDetector(device="cpu")
     assert [det.detect_content_type(a).value for a in audios] == [t.value for t in types]
     host = det.extract_acoustic_features(x[4], SR)
     jhost = jcd.ContentDetector().extract_acoustic_features(x[4], SR)
@@ -133,7 +133,7 @@ def test_generator_strict_news_matches_jax(clips):
     audios, jaudios = _pair(x, "news")
     cfg = tconfig.FingerprintConfig(feature_config=tconfig.FeatureConfig(**GEOMETRY))
     jcfg = jconfig.FingerprintConfig(feature_config=jconfig.FeatureConfig(**GEOMETRY))
-    fps = FingerprintGenerator(cfg).generate_fingerprints_batch(audios)
+    fps = FingerprintGenerator(cfg, device="cpu").generate_fingerprints_batch(audios)
     jfps = JGenerator(jcfg).generate_fingerprints_batch(jaudios)
     _compare_fps(fps, jfps, x)
     assert fps[0].features.speech_features is not None
@@ -146,7 +146,8 @@ def test_generator_nonstrict_music_matches_jax(clips):
     audios, jaudios = _pair(x, "music")
     cfg = tconfig.FingerprintConfig(feature_config=tconfig.FeatureConfig(**GEOMETRY))
     jcfg = jconfig.FingerprintConfig(feature_config=jconfig.FeatureConfig(**GEOMETRY))
-    fps = FingerprintGenerator(cfg, strict_reference_routing=False).generate_fingerprints_batch(audios)
+    fps = FingerprintGenerator(cfg, strict_reference_routing=False, device="cpu").generate_fingerprints_batch(
+        audios)
     jfps = JGenerator(jcfg, strict_reference_routing=False).generate_fingerprints_batch(jaudios)
     assert fps[0].metadata["extractor_name"] == "MusicFeatureExtractor"
     _compare_fps(fps, jfps, x)
@@ -157,7 +158,7 @@ def test_generator_detects_and_groups_like_jax(clips):
     splits the batch into content groups, each on its own extractor."""
     x = np.concatenate([clips["babble"][:2], clips["music"][:1]])
     audios, jaudios = _pair(x)
-    batch = FingerprintGenerator().generate_fingerprints_batch(audios, materialize=False)
+    batch = FingerprintGenerator(device="cpu").generate_fingerprints_batch(audios, materialize=False)
     jfps = JGenerator().generate_fingerprints_batch(jaudios)
     assert isinstance(batch, FingerprintBatch) and len(batch.groups) == 2
     assert all(fp.features is None for fp in batch.fingerprints)
@@ -181,7 +182,7 @@ def test_generate_fingerprints_mixed_matches_jax(clips):
     jaudios = [JAudio(p, r, metadata=JMeta(extra=meta)) for p, r in zip(pcms, rates)]
     cfg = tconfig.FingerprintConfig(feature_config=tconfig.FeatureConfig(**GEOMETRY))
     jcfg = jconfig.FingerprintConfig(feature_config=jconfig.FeatureConfig(**GEOMETRY))
-    fps = FingerprintGenerator(cfg).generate_fingerprints_mixed(audios)
+    fps = FingerprintGenerator(cfg, device="cpu").generate_fingerprints_mixed(audios)
     jfps = JGenerator(jcfg).generate_fingerprints_mixed(jaudios)
     assert [f.duration for f in fps] == [a.duration for a in audios]
     assert [f.sample_rate for f in fps] == rates
@@ -207,7 +208,7 @@ def test_batch_equals_per_clip_and_pcm_matrix(clips):
     pcm_matrix gives the stacked batch's bits."""
     x = clips["voices"][:2]
     cfg = tconfig.FingerprintConfig(feature_config=tconfig.FeatureConfig(**GEOMETRY))
-    gen = FingerprintGenerator(cfg)
+    gen = FingerprintGenerator(cfg, device="cpu")
     audios, _ = _pair(x, "news")
     fps = gen.generate_fingerprints_batch(audios)
     one = gen.generate_fingerprint(audios[1])
@@ -228,8 +229,8 @@ def test_speculation_hit_and_miss_equal_no_speculation(clips):
     generator that never speculates."""
     music, _ = _pair(clips["music"][:2])
     babble, _ = _pair(clips["babble"][:2])
-    gen = FingerprintGenerator()
-    ref_gen = FingerprintGenerator()
+    gen = FingerprintGenerator(device="cpu")
+    ref_gen = FingerprintGenerator(device="cpu")
     gen.generate_fingerprints_batch(music)
     assert gen._spec_ct == tconfig.ContentType.MUSIC
     miss = gen.generate_fingerprints_batch(babble)
@@ -246,13 +247,13 @@ def test_all_metadata_batch_dispatches_nothing(clips):
     """Every clip labelled: no acoustic pass, `dispatched` is bound and
     False (the JAX package leaves it unbound on this path)."""
     audios, _ = _pair(clips["voices"][:2], "talk")
-    gen = FingerprintGenerator()
+    gen = FingerprintGenerator(device="cpu")
     resolve, dispatched = gen._detect_content_types_batch_async(audios, torch.from_numpy(clips["voices"][:2]))
     assert dispatched is False
     assert resolve() == [tconfig.ContentType.TALK] * 2
     cfg = dataclasses.replace(gen.config, content_aware=tconfig.ContentAwareConfig(enable_content_detection=False))
     plain, _ = _pair(clips["voices"][:2])
-    resolve, dispatched = FingerprintGenerator(cfg)._detect_content_types_batch_async(
+    resolve, dispatched = FingerprintGenerator(cfg, device="cpu")._detect_content_types_batch_async(
         plain, torch.from_numpy(clips["voices"][:2]))
     assert dispatched is False and resolve() == [tconfig.ContentType.UNKNOWN] * 2
 

@@ -1,5 +1,6 @@
-"""The port's K1 (STFT + aux), K2 (YIN, with its period amplitude) and
-K4 (onset thinning) modules held to the JAX package on the CPU.
+"""The port's K1 (STFT + aux), K2 (YIN, with its period amplitude), K3
+(the YIN difference rows) and K4 (onset thinning) modules held to the JAX
+package on the CPU.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; these tests
 hold that version to both of the JAX package's paths: the Pallas kernel
@@ -25,7 +26,7 @@ from sonido_sonar_tpu.ops import temporal as jtemporal  # noqa: E402
 from sonido_sonar_tpu.ops.filters import pre_emphasis as j_pre_emphasis  # noqa: E402
 from sonido_sonar_tpu.ops.pallas_onsets import thin_onsets_pallas  # noqa: E402
 from sonido_sonar_tpu.ops.pallas_stft import stft_magnitude_pallas  # noqa: E402
-from sonido_sonar_tpu.ops.pallas_yin import yin_pitch_pallas  # noqa: E402
+from sonido_sonar_tpu.ops.pallas_yin import yin_difference_pallas, yin_pitch_pallas  # noqa: E402
 from sonido_sonar_tpu.ops.stft import stft as j_stft  # noqa: E402
 from sonido_sonar_tpu_torch import _build  # noqa: E402
 from sonido_sonar_tpu_torch.ops import framing as tframing  # noqa: E402
@@ -156,6 +157,34 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         hopper_stft.stft_magnitude_hopper(x, 1024, 256)
     with pytest.raises(ValueError, match="no K2 kernel"):
         hopper_yin.yin_pitch_hopper(x, 1024, 512, SR, 80.0, 1000.0)
+    with pytest.raises(ValueError, match="no K3 kernel"):
+        hopper_yin.yin_difference_hopper(x, 1024, 512)
+
+
+@pytest.mark.parametrize("hop,rows", [(512, 2), (256, 1)])
+def test_k3_plain_matches_pallas_interpret(hop, rows):
+    """The difference rows at 1024/512 and 1024/256 (a 1-D row): atol 2e-4
+    of the largest |d|, as tests/test_pallas_yin.py:35-45; 1.5 s rows give
+    the interpret-mode kernel more than one 64-frame tile."""
+    x = _pcm(rows, 1.5, 20 + hop)
+    x = x[0] if rows == 1 else x
+    d = hopper_yin.yin_difference_hopper(torch.from_numpy(x), 1024, hop)
+    ref = np.asarray(yin_difference_pallas(jnp.asarray(x), 1024, hop, interpret=True))
+    assert d.shape == ref.shape and d.dtype == torch.float32
+    np.testing.assert_allclose(d.numpy(), ref, atol=parity.YIN_DIFF_ATOL_SCALE * np.abs(ref).max())
+
+
+def test_k3_wrapper_takes_plain_version_on_cpu_without_launching():
+    """The plain version is framing + ops/pitch._yin_difference, no
+    pre-emphasis; [2, 3, N] gives the rows of [6, N]."""
+    x = torch.from_numpy(_pcm(6, 0.5, 21))
+    before = hopper_yin.yin_difference_hopper.launches
+    d = hopper_yin.yin_difference_hopper(x, 1024, 512)
+    assert torch.equal(d, tpitch._yin_difference(tframing.frame_signal(x, 1024, 512)))
+    assert torch.equal(d, hopper_yin.yin_difference_plain(x, 1024, 512))
+    d3 = hopper_yin.yin_difference_hopper(x.view(2, 3, -1), 1024, 512)
+    assert d3.shape == (2, 3) + d.shape[1:] and torch.equal(d3.reshape(d.shape), d)
+    assert hopper_yin.yin_difference_hopper.launches == before
 
 
 @pytest.mark.parametrize(
@@ -185,23 +214,31 @@ def test_kernel_signal_views_rows():
 
 
 def test_build_command_targets_hopper(tmp_path, monkeypatch):
-    """nvcc by hand for sm_90a into a shared library with a C interface;
-    the library name follows the sources, and nvcc comes from CUDA_HOME.
-    Every kernel source is compiled, and every C entry point has its
-    ctypes signature: pointers and the stream as c_void_p."""
-    cmd = _build.nvcc_command("nvcc", tmp_path / "lib.so")
-    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    assert {"-shared", "-fPIC", "-O3", "-std=c++17"} <= set(cmd)
-    assert [c for c in cmd if c.endswith(".cu")] == [
+    """nvcc by hand for sm_90a, one compile per source (started together),
+    linked into a shared library with a C interface; the library name
+    follows the sources, and nvcc comes from CUDA_HOME. Every kernel
+    source is compiled, and every C entry point has its ctypes signature:
+    pointers and the stream as c_void_p."""
+    compiles, link = _build.nvcc_commands("nvcc", tmp_path / "lib.so")
+    for cmd in compiles:
+        assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+        assert {"-c", "-fPIC", "-O3", "-std=c++17"} <= set(cmd)
+    assert [c[c.index("-c") + 1] for c in compiles] == [
         str(_build._PKG / s) for s in _build.SOURCES
     ]
-    assert {"csrc/stft.cu", "csrc/yin.cu", "csrc/onsets.cu", "csrc/dtw.cu"} == set(_build.SOURCES)
+    assert link[:4] == ["nvcc", "-shared", "-o", str(tmp_path / "lib.so")]
+    assert link[4:] == [c[-1] for c in compiles] and len(set(link[4:])) == len(compiles)
+    assert {"csrc/stft.cu", "csrc/yin.cu", "csrc/onsets.cu", "csrc/dtw.cu",
+            "csrc/contrast.cu"} == set(_build.SOURCES)
     assert all((_build._PKG / s).is_file() for s in _build.SOURCES)
     import ctypes
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     sigs = _build._SIGNATURES
     assert sigs["sonido_yin_pitch"][:4] == (P, P, P, P)  # sig, pitch, conf, amp (nullable)
     assert sigs["sonido_yin_pitch"][-1] == P and len(sigs["sonido_yin_pitch"]) == 15
+    assert sigs["sonido_stft_features"] == (P,) * 10 + (I,) * 5 + (F, P)
+    assert sigs["sonido_yin_difference"] == (P, P, I, I, I, I, I, P)
+    assert sigs["sonido_contrast_band_means"] == (P, P, P, P, L, I, I, P)
     assert sigs["sonido_thin_onsets"] == (P, P, I, I, I, P)
     assert sigs["sonido_dtw_fill_banded"] == (P, P, P, I, I, I, I, I, P)
     assert sigs["sonido_dtw_backtrack_banded"] == (P, P, P, P, P, I, I, I, I, P)
@@ -210,13 +247,30 @@ def test_build_command_targets_hopper(tmp_path, monkeypatch):
         decl = sources[sources.index(f'extern "C" int {name}('):]
         decl = decl[: decl.index(")")]
         assert decl.count(",") + 1 == len(argtypes), name
-        assert F in argtypes or name.startswith(("sonido_thin_onsets", "sonido_dtw_"))
+        assert decl.count("*") == argtypes.count(P), name
+        assert ("long long" in decl) == (L in argtypes), name
     assert len(_build.source_hash()) == 16 and _build.source_hash() == _build.source_hash()
     nvcc = tmp_path / "bin" / "nvcc"
     nvcc.parent.mkdir()
     nvcc.write_text("")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     assert _build.find_nvcc() == str(nvcc)
+
+
+def test_failed_build_leaves_no_library(tmp_path, monkeypatch):
+    """A build that fails raises KernelError and leaves neither the
+    library nor its half-written temporary file nor the objects."""
+    def failing_nvcc(nvcc, out):
+        out.with_suffix("").mkdir(parents=True)
+        out.write_bytes(b"half a library")
+        raise _build.KernelError("nvcc failed (1)")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "_run_nvcc", failing_nvcc)
+    with pytest.raises(_build.KernelError, match="nvcc failed"):
+        _build.build.__wrapped__()
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_k2_period_amp_plain_matches_pallas_interpret():

@@ -50,7 +50,8 @@ def test_latency_monitor_matches_jax():
     lag_s = 0.8
     src, cdn = _streams(20.0, lag_s)
     tcfg, jcfg = _cfgs()
-    tm = LatencyMonitor(tcfg, AlignmentConfig(), window_seconds=12.0, max_lag_seconds=3.0)
+    tm = LatencyMonitor(tcfg, AlignmentConfig(), window_seconds=12.0, max_lag_seconds=3.0,
+                        device="cpu")
     jm = jmon.LatencyMonitor(jcfg, JAlignmentConfig(), window_seconds=12.0, max_lag_seconds=3.0)
     assert tm.measure() is None and not tm.ready()
     chunk = SR // 2
@@ -75,7 +76,7 @@ def test_fleet_monitor_matches_jax():
     lags = [0.3, -0.2, 0.55]
     tcfg, jcfg = _cfgs()
     kw = dict(n_streams=3, window_seconds=8.0, max_lag_seconds=1.0, measure_batch=2)
-    tf, jf = FleetMonitor(tcfg, **kw), jmon.FleetMonitor(jcfg, **kw)
+    tf, jf = FleetMonitor(tcfg, device="cpu", **kw), jmon.FleetMonitor(jcfg, **kw)
     assert tf.measure_all() == [None] * 3
     src, _ = _streams(12.0, 0.0)
     for i, lag in enumerate(lags):
@@ -111,7 +112,7 @@ def test_window_contents_after_pushes(fleet):
     w = 2 * SR
     rng = np.random.default_rng(0)
     if fleet:
-        mon = FleetMonitor(tcfg, n_streams=2, window_seconds=2.0, max_lag_seconds=0.5)
+        mon = FleetMonitor(tcfg, n_streams=2, window_seconds=2.0, max_lag_seconds=0.5, device="cpu")
         totals = [np.zeros(w, np.float32), np.zeros(w, np.float32)]  # windows start at 0
         for n in (1000, 37, w, 9000, 256, w + 5):
             row = int(rng.integers(0, 2))
@@ -125,7 +126,7 @@ def test_window_contents_after_pushes(fleet):
             np.testing.assert_array_equal(mon._src.buf[k].numpy(), totals[k][-w:])
             assert mon._samples_seen[k] == len(totals[k]) - w
     else:
-        mon = LatencyMonitor(tcfg, window_seconds=2.0, max_lag_seconds=0.5)
+        mon = LatencyMonitor(tcfg, window_seconds=2.0, max_lag_seconds=0.5, device="cpu")
         total = np.zeros(w, np.float32)  # the window starts at 0
         for n in (1000, 37, w, 9000, 256, 16001, w + 5):
             chunk = rng.standard_normal(n).astype(np.float32)
@@ -141,8 +142,8 @@ def test_windows_own_their_buffers(n):
     it was (a push of at least one window must not alias the caller's
     data)."""
     tcfg, _ = _cfgs()
-    mon = LatencyMonitor(tcfg, window_seconds=2.0, max_lag_seconds=0.5)
-    fleet = FleetMonitor(tcfg, n_streams=2, window_seconds=2.0, max_lag_seconds=0.5)
+    mon = LatencyMonitor(tcfg, window_seconds=2.0, max_lag_seconds=0.5, device="cpu")
+    fleet = FleetMonitor(tcfg, n_streams=2, window_seconds=2.0, max_lag_seconds=0.5, device="cpu")
     x = torch.arange(n, dtype=torch.float32)
     a = np.arange(n, dtype=np.float32)
     mon.push_source(x)
@@ -170,7 +171,7 @@ def test_kernel_error_propagates_and_data_errors_degrade(monkeypatch):
     correlation answer, the extractor reports a failed feature)."""
     q, r = _long_unrelated()
     tcfg, _ = _cfgs()
-    ext = AlignmentExtractor(tcfg, max_lag_seconds=1.0)
+    ext = AlignmentExtractor(tcfg, max_lag_seconds=1.0, device="cpu")
     analyzer = AlignmentAnalyzer(method="hybrid", max_lag=100, sample_rate=SR, hop_size=256,
                                  dtw_band=50)
 
@@ -210,4 +211,4 @@ def test_wrapper_refusal_propagates(monkeypatch):
     with pytest.raises(_build.KernelError, match="no DTW fill kernel"):
         analyzer.align_features(q, r, SR)
     with pytest.raises(_build.KernelError, match="no DTW fill kernel"):
-        AlignmentExtractor(tcfg, max_lag_seconds=1.0)._align_with("dtw_chroma", q, r, SR, "dtw")
+        AlignmentExtractor(tcfg, max_lag_seconds=1.0, device="cpu")._align_with("dtw_chroma", q, r, SR, "dtw")

@@ -7,7 +7,8 @@ Runs `batched_fingerprint_features` (window 1024, hop 256, 44.1 kHz) on
 CUDA device 0 under torch.profiler after one warm-up step, then prints
 the card's name and power limit, the wall time per step, the device's
 busy share (sum of kernel times over wall time) and the 40 CUDA kernels
-with the most device time.
+with the most device time. With SONIDO_ENABLE_FEAT_EPILOGUE=1 in the
+environment the step is the feature-epilogue configuration's.
 Needs a CUDA card; inputs come from utils/parity.synth_pcm with seed 0.
 """
 
@@ -35,7 +36,10 @@ def main() -> int:
         raise SystemExit("profile_torch: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from sonido_sonar_tpu_torch.parallel.pipeline import batched_fingerprint_features
+    from sonido_sonar_tpu_torch.parallel.pipeline import (
+        batched_fingerprint_features,
+        feat_epilogue_enabled,
+    )
     from sonido_sonar_tpu_torch.utils.parity import synth_pcm
 
     card = subprocess.run(
@@ -58,6 +62,7 @@ def main() -> int:
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels) / args.steps
     print(f"card: {card}")
+    print(f"configuration: {'feature epilogue' if feat_epilogue_enabled() else 'default'}")
     print(f"B={args.batch} x {args.seconds} s: {1e3 * wall:.2f} ms/step wall (profiled), "
           f"device busy {1e-3 * device_us:.2f} ms/step = {100 * device_us * 1e-6 / wall:.1f} %")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:40]:
