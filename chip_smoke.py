@@ -10,10 +10,12 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
 
   1. the card's name and power limit (nvidia-smi)
   2. require CUDA; TF32 off
-  3. build the kernels
+  3. build the kernels; the compiler's registers and spills, and K1's and
+     K10's shared memory per block and resident blocks per SM at 1024/256
   4. K1 (STFT + aux) against its plain version, B=4 x 5 s and B=128 x 30 s
   5. K2 (YIN) against its plain version, same inputs; then both at other
-     windows, hops and pre-emphasis values, and on a 1-D row
+     windows, hops and pre-emphasis values, K1 alone at W = 64 and 128 and
+     at an odd hop, and both on a 1-D row
   6. the main path, batched_fingerprint_features, at B=128 x 30 s,
      44.1 kHz, window 1024, hop 256: shapes, finite values, kernel launch
      counts, step time and audio-hours per wall-hour
@@ -105,6 +107,7 @@ utils/parity.harmonic_clips), drawn with numpy from SEED.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -150,9 +153,9 @@ def bound(nbytes: float, ops: float) -> tuple:
 
 
 def stft_ops(w: int) -> float:
-    """Operations per frame of the STFT kernel: window, a radix-2 FFT of
-    W/2 complex points (5 N log2 N), the real split and magnitude (~20 per
-    bin), the aux sums (~4 per bin and 3 per sample)."""
+    """Operations per frame of the STFT: window, an FFT of W/2 complex
+    points (5 N log2 N, the radix-2 count), the real split and magnitude
+    (~20 per bin), the aux sums (~4 per bin and 3 per sample)."""
     f_bins = w // 2 + 1
     return w + 5 * (w // 2) * np.log2(w // 2) + 24 * f_bins + 3 * w
 
@@ -805,9 +808,17 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
 
-    _, info = _build.build()                                  # phase 3
+    lib, info = _build.build()                                # phase 3
     log(f"built {info.path.name} in {info.seconds:.1f} s")
     log(info.compiler_log.strip())
+    for name, features in (("K1", 0), ("K10", 1)):
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        code = lib.sonido_stft_occupancy(WINDOW, HOP, features, ctypes.byref(smem),
+                                         ctypes.byref(blocks))
+        if code != 0:
+            raise AssertionError(f"{name} occupancy query failed: {lib.sonido_error_string(code)}")
+        log(f"{name} at {WINDOW}/{HOP}: {smem.value} B of shared memory per block, "
+            f"{blocks.value} blocks per SM [{card}]")
 
     k1 = hopper_stft.stft_magnitude_hopper
     k1_plain = hopper_stft.stft_magnitude_plain
@@ -851,6 +862,9 @@ def main() -> int:
     for w, hop, pre in ((512, 128, 0.0), (2048, 512, 0.95), (256, 100, 0.97)):
         hold_k1(odd, w, hop, pre)
         hold_k2(odd, w, hop, pre)
+    # K1's smallest FFT instances, and an odd hop (frames off 8-byte alignment)
+    for w, hop, pre in ((64, 32, PRE_EMPH), (128, 64, 0.0), (1024, 255, PRE_EMPH)):
+        hold_k1(odd, w, hop, pre)
     mag1, aux1 = k1(odd[1], WINDOW, HOP, pre_emph=PRE_EMPH)
     mag3, aux3 = k1(odd, WINDOW, HOP, pre_emph=PRE_EMPH)
     p1 = k2(odd[1], *k2_args)[0]

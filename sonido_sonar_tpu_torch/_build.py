@@ -53,6 +53,8 @@ _SIGNATURES = {
     # sig, window, twiddle, mag, aux, feat, row_ptr, bin, weight, freq_logf,
     # batch, n, frames, window, hop, pre_emph, stream
     "sonido_stft_features": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # window, hop, features, smem bytes (out), blocks per SM (out)
+    "sonido_stft_occupancy": (_I, _I, _I, _P, _P),
     # sig, pitch, conf, amp (nullable), batch, n, frames, window, hop,
     # pre_emph, sample_rate, min_freq, max_freq, threshold, stream
     "sonido_yin_pitch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),

@@ -9,49 +9,70 @@
 // [5, B, T]; pre-emphasis y[n] = x[n] - a x[n-1] with x[-1] = 0 only at
 // the start of each row.
 //
-// What bounds it on an H100: the DFT. As a matmul against the [W, 2F]
-// windowed basis (the TPU's choice, made for its MXU) it is ~2.1 MFLOP
-// per frame, 1.4 TFLOP per 128 x 30 s batch of fp32 work. Here each frame
-// is windowed in shared memory and transformed by a W/2-point complex
-// radix-2 FFT of the packed real signal (z[m] = x[2m] + i x[2m+1]) plus
-// the real-FFT split, ~50 kFLOP per frame: the kernel is then bound by
-// shared-memory traffic of the butterflies and by writing the magnitudes
-// (4 * F bytes per frame) to device memory, not by arithmetic. The signal
-// is read once: one block stages the samples of kTile frames
-// ((kTile-1)*hop + W floats) in shared memory, so the 4x-overlapped
-// [B, T, W] frames tensor never exists in device memory.
+// What bounds it on an H100: the bytes. At B=128 x 30 s, 1024/256 it
+// reads 677 MB of PCM and writes 1.37 GB of magnitudes, 0.61 ms at
+// 3.35 TB/s; the transform is ~25 kFLOP per frame as a W/2-point complex
+// FFT of the packed real frame (z[m] = x[2m] + i x[2m+1]) plus the
+// real-FFT split, ~0.25 ms of fp32 work. The DFT as a matmul against a
+// [W, 2F] basis (the TPU's choice, made for its MXU) would be ~2.1 MFLOP
+// per frame.
+//
+// Design: one warp owns one frame end to end, so nothing inside the
+// transform waits on the block.
+//   - A block stages the pre-emphasized samples of up to kTileMax
+//     consecutive frames ((frames-1)*hop + W floats) once, so the
+//     4x-overlapped frames tensor never exists in device memory; the only
+//     __syncthreads() is the one after staging.
+//   - Each warp then walks its frames. The W/2-point FFT is a Stockham
+//     autosort of radix-8 passes and one radix-2 or radix-4 pass for the
+//     rest (FftPlan; 512 = 8 x 8 x 8). Within a pass every butterfly is in
+//     registers (W/64 points per lane at W >= 512: lane l holds butterflies
+//     j = l + 32 s); between passes the warp exchanges its points through
+//     its own shared buffer under __syncwarp() only. The buffer is indexed
+//     through an XOR swizzle (swz) that keeps every pass's loads and stores
+//     free of bank conflicts at the size of the data, no padding.
+//   - Pass 0 reads the staged samples and the window directly and adds up
+//     the frame's sum of squares and zero crossings on the way; the other
+//     passes read their twiddles from a table in pass order (lanes of
+//     neighbouring butterflies read neighbouring entries).
+//   - The same warp then does the real-FFT split for bins k = l + 32 i,
+//     writes the magnitudes (each store 32 consecutive floats of the
+//     frame's contiguous row), and finds the rolloff bin by a warp prefix
+//     sum over contiguous per-lane chunks of the power.
 //
 // Numerics: fp32 throughout; pre-emphasis is rounded exactly like the
 // plain PyTorch version (multiply, then subtract) so the zero-crossing
 // counts see the same samples. Twiddles come from the host, built in
-// float64.
+// float64 (ops/hopper_stft.twiddle_table, whose numpy model fft_model
+// runs the same pass order and index maps).
 //
 // K10, the feature epilogue (sonido_stft_features): replaces the
 // with_features=True epilogue of the same TPU kernel (pallas_stft.py
 // :334-417). After the aux epilogue, on the frame's power and magnitudes
-// still in shared memory, it writes feat [B, T, 43]: 26 mel energies and
-// the 12-class chroma fold of the power (each a weighted sum over a
-// compressed sparse row table from the host: a mel filter is a run of
-// bins, a bin folds into at most one chroma class, so ~2F products per
+// still in the warp's buffer, the same warp writes feat [B, T, 43]: 26 mel
+// energies and the 12-class chroma fold of the power (each a weighted sum
+// over a compressed sparse row table from the host: a mel filter is a run
+// of bins, a bin folds into at most one chroma class, so ~2F products per
 // frame instead of the TPU's dense [F, 64] matmuls), the chroma
 // normalized to unit sum, and the descriptor bundle's centroid,
 // bandwidth (its second pass over (f - centroid)^2 m, not the TPU's
 // moment expansion), flatness, crest and slope, finished per frame as
 // ops/spectral.frame_descriptors finishes them. All fp32; the TPU's bf16
-// hi/lo tiers existed for its MXU and have no counterpart. What bounds
-// it: the same magnitude write as K1 (the epilogue adds 43 floats per
-// frame against 513) and the per-frame reductions, one warp per frame.
-// The K1 launch (sonido_stft_aux) is the same template without the
-// epilogue, so its code and its bits are unchanged.
+// hi/lo tiers existed for its MXU and have no counterpart. The K1 launch
+// (sonido_stft_aux) is the same template without the epilogue, one FFT
+// core for both, so its magnitudes and aux bits are the same.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kTile = 32;      // frames per block
-constexpr int kGroup = 4;      // frames transformed at once (one warp each in the epilogue)
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTileMax = 16;     // frames per block
+constexpr int kSigCap = 8192;    // staged floats per block past which the tile has fewer frames
 constexpr float kEps = 1e-10f;
 constexpr float kRolloff = 0.85f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -64,6 +85,22 @@ constexpr float kInvLn10 = 0.43429448190325176f;
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 mul_neg_i(float2 a) { return make_float2(a.y, -a.x); }
+
+// sqrt.approx (one MUFU op) for the magnitudes: the IEEE-rounded sqrtf's
+// refinement costs 11 % of K1's time at W = 1024 (tools/profile_torch.py
+// --ablate-stft); the magnitude gates of utils/parity hold either way.
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float y;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
@@ -75,25 +112,161 @@ __device__ __forceinline__ int warp_sum_int(int v) {
   return v;
 }
 
-__device__ __forceinline__ int warp_min_int(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+// The warp buffer's swizzle, in float2 units: bits 3-6 of the index flip
+// its bits 0-3. A 64-bit access is served per half-warp; with it the
+// stride-R stores of pass 0, the 8-runs of pass 1 and the unit-stride
+// loads all fall on 16 distinct bank pairs (ops/hopper_stft.swizzle).
+__device__ __forceinline__ int swz(int i) { return i ^ ((i >> 3) & 15); }
+
+// In-register forward DFTs, exp(-2 pi i k n / R).
+template <int R> __device__ __forceinline__ void dft(float2 (&v)[R]);
+
+template <> __device__ __forceinline__ void dft<2>(float2 (&v)[2]) {
+  const float2 a = v[0], b = v[1];
+  v[0] = cadd(a, b);
+  v[1] = csub(a, b);
 }
 
-// Shared-memory layout, in floats; every float2 array starts at an even
-// offset. The feature epilogue adds the group's magnitudes and chroma sums.
+template <> __device__ __forceinline__ void dft<4>(float2 (&v)[4]) {
+  const float2 s02 = cadd(v[0], v[2]), d02 = csub(v[0], v[2]);
+  const float2 s13 = cadd(v[1], v[3]), d13 = mul_neg_i(csub(v[1], v[3]));
+  v[0] = cadd(s02, s13);
+  v[1] = cadd(d02, d13);
+  v[2] = csub(s02, s13);
+  v[3] = csub(d02, d13);
+}
+
+template <> __device__ __forceinline__ void dft<8>(float2 (&v)[8]) {
+  float2 e[4] = {v[0], v[2], v[4], v[6]};
+  float2 o[4] = {v[1], v[3], v[5], v[7]};
+  dft<4>(e);
+  dft<4>(o);
+  constexpr float h = 0.70710678118654752f;
+  o[1] = make_float2(h * (o[1].x + o[1].y), h * (o[1].y - o[1].x));    // * exp(-i pi/4)
+  o[2] = mul_neg_i(o[2]);                                             // * -i
+  o[3] = make_float2(h * (o[3].y - o[3].x), -h * (o[3].x + o[3].y));   // * exp(-3i pi/4)
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = cadd(e[k], o[k]);
+    v[k + 4] = csub(e[k], o[k]);
+  }
+}
+
+// The pass schedule of the N = 2^kLog2N point FFT: radix-8 passes, then one
+// of radix 2 or 4; pass p has span Ns = the product of the earlier radices.
+// Twiddles: the split's exp(-2 pi i k / W), k in [0, N], at 0; pass p >= 1
+// reads exp(-2 pi i q r / (Ns R)) at tw_offset(p) + (r - 1) Ns + q.
+template <int kLog2N>
+struct FftPlan {
+  static constexpr int kN = 1 << kLog2N;
+  static constexpr int kPasses = (kLog2N + 2) / 3;
+  __host__ __device__ static constexpr int log2_radix(int p) {
+    return p < kLog2N / 3 ? 3 : kLog2N % 3;
+  }
+  __host__ __device__ static constexpr int log2_span(int p) {
+    return p == 0 ? 0 : log2_span(p - 1) + log2_radix(p - 1);
+  }
+  __host__ __device__ static constexpr int tw_offset(int p) {
+    return p <= 1 ? kN + 1
+                  : tw_offset(p - 1) + ((1 << log2_radix(p - 1)) - 1) * (1 << log2_span(p - 1));
+  }
+};
+
+// Pass 0 (Ns = 1, no twiddles): the packed windowed frame from the staged
+// samples, with the frame's sum of squares and zero crossings over the
+// raw (pre-emphasized) samples on the way.
+template <int N, int R>
+__device__ __forceinline__ void fft_first_pass(const float* fr, bool even,
+                                               const float2* __restrict__ win2, float2* buf,
+                                               int lane, float& sq, int& zc) {
+  constexpr int kB = N / R;
+  constexpr int kSlots = (kB + 31) / 32;
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int j = lane + 32 * s;
+    if (kB >= 32 || j < kB) {
+      float2 v[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int m = j + r * kB;
+        float a, b;
+        if (even) {
+          const float2 t = *reinterpret_cast<const float2*>(fr + 2 * m);
+          a = t.x;
+          b = t.y;
+        } else {
+          a = fr[2 * m];
+          b = fr[2 * m + 1];
+        }
+        sq += a * a + b * b;
+        zc += (a >= 0.f) != (b >= 0.f);
+        if (m + 1 < N) zc += (b >= 0.f) != (fr[2 * m + 2] >= 0.f);
+        const float2 wv = __ldg(win2 + m);
+        v[r] = make_float2(a * wv.x, b * wv.y);
+      }
+      dft<R>(v);
+#pragma unroll
+      for (int r = 0; r < R; ++r) buf[swz(j * R + r)] = v[r];
+    }
+  }
+}
+
+// Pass p >= 1, in place: every lane loads its butterflies' points, the warp
+// syncs, then each stores its results to their Stockham places.
+template <int N, int R, int NS>
+__device__ __forceinline__ void fft_pass(float2* buf, const float2* __restrict__ tw, int lane) {
+  constexpr int kB = N / R;
+  constexpr int kSlots = (kB + 31) / 32;
+  float2 v[kSlots][R];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int j = lane + 32 * s;
+    if (kB >= 32 || j < kB) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[s][r] = buf[swz(j + r * kB)];
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int j = lane + 32 * s;
+    if (kB >= 32 || j < kB) {
+      const int q = j & (NS - 1);
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[s][r] = cmul(v[s][r], __ldg(tw + (r - 1) * NS + q));
+      dft<R>(v[s]);
+      const int dst = (j / NS) * NS * R + q;
+#pragma unroll
+      for (int r = 0; r < R; ++r) buf[swz(dst + r * NS)] = v[s][r];
+    }
+  }
+}
+
+template <int kLog2N, int P>
+__device__ __forceinline__ void fft_passes_from(float2* buf, const float2* __restrict__ tw,
+                                                int lane) {
+  using Plan = FftPlan<kLog2N>;
+  if constexpr (P < Plan::kPasses) {
+    fft_pass<Plan::kN, 1 << Plan::log2_radix(P), 1 << Plan::log2_span(P)>(
+        buf, tw + Plan::tw_offset(P), lane);
+    __syncwarp();
+    fft_passes_from<kLog2N, P + 1>(buf, tw, lane);
+  }
+}
+
+// Shared-memory layout, in floats: the staged samples, then one buffer per
+// warp (the frame's N complex points; after the split its power [F] and,
+// for the feature epilogue, its magnitudes [F] and 12 chroma sums).
 struct Layout {
-  int sig, win, tw, buf, pow, mag, chroma, total;
+  int tile, sig, warp_buf, total;
   __host__ __device__ Layout(int w, int hop, bool features) {
-    const int half = w / 2;
-    sig = 0;
-    win = ((kTile - 1) * hop + w + 3) & ~3;
-    tw = win + w;
-    buf = tw + 2 * (half + 2);
-    pow = buf + 2 * kGroup * half;
-    mag = pow + kGroup * (half + 1);
-    chroma = mag + (features ? kGroup * (half + 1) : 0);
-    total = chroma + (features ? kGroup * kChroma : 0);
+    const int half = w / 2, f_bins = half + 1;
+    const int fit = (kSigCap - w) / hop + 1;  // w <= 2048 < kSigCap, so fit >= 1
+    tile = fit < kTileMax ? fit : kTileMax;
+    sig = ((tile - 1) * hop + w + 3) & ~3;
+    const int feat_buf = 2 * f_bins + kChroma > 2 * half ? 2 * f_bins + kChroma : 2 * half;
+    warp_buf = (features ? feat_buf + 3 : 2 * half) & ~3;
+    total = sig + kWarps * warp_buf;
   }
 };
 
@@ -106,29 +279,111 @@ struct FeatArgs {
   const float2* freq_logf;     // [F]: (f, log10 f or 0 at f = 0)
 };
 
-template <bool kFeatures>
-__global__ void __launch_bounds__(kThreads) stft_aux_kernel(
-    const float* __restrict__ sig, const float* __restrict__ window,
-    const float2* __restrict__ twiddle,  // [W/2 + 1]: exp(-2 pi i k / W)
-    float* __restrict__ mag, float* __restrict__ aux, FeatArgs fa,
-    int batch, int n, int t_frames, int w, int log2_half, int hop, float pre_emph) {
-  extern __shared__ float smem[];
-  const Layout L(w, hop, kFeatures);
-  float* s_sig = smem + L.sig;
-  float* s_win = smem + L.win;
-  float2* s_tw = reinterpret_cast<float2*>(smem + L.tw);
-  float2* s_buf = reinterpret_cast<float2*>(smem + L.buf);
-  float* s_pow = smem + L.pow;
-  float* s_mag = smem + L.mag;
-  float* s_chroma = smem + L.chroma;
+// K10's per-frame epilogue, by the frame's warp: p and m are the frame's
+// power and magnitudes [F] in its buffer, chroma 12 floats of scratch.
+__device__ __forceinline__ void feature_epilogue(const FeatArgs& fa, const float* p,
+                                                 const float* m, float* chroma, int f_bins,
+                                                 size_t frame, int lane) {
+  float psum = 0.f, msum = 0.f, fmsum = 0.f, mmax = 0.f, cnt = 0.f, lsum = 0.f;
+  float ns = 0.f, sx = 0.f, sxx = 0.f, sy = 0.f, sxy = 0.f;
+  for (int k = lane; k < f_bins; k += 32) {
+    const float mk = m[k];
+    const float2 fl = fa.freq_logf[k];
+    psum += p[k];
+    msum += mk;
+    fmsum += mk * fl.x;
+    mmax = fmaxf(mmax, mk);
+    if (mk > kEps) {  // flatness: ln m over bins above the threshold
+      const float lm = logf(mk);
+      cnt += 1.f;
+      lsum += lm;
+      if (fl.x > 0.f) {  // slope: log10 m on log10 f, f > 0 too
+        const float y = lm * kInvLn10;
+        ns += 1.f;
+        sx += fl.y;
+        sxx += fl.y * fl.y;
+        sy += y;
+        sxy += y * fl.y;
+      }
+    }
+  }
+  psum = warp_sum(psum);
+  msum = warp_sum(msum);
+  fmsum = warp_sum(fmsum);
+  cnt = warp_sum(cnt);
+  lsum = warp_sum(lsum);
+  ns = warp_sum(ns);
+  sx = warp_sum(sx);
+  sxx = warp_sum(sxx);
+  sy = warp_sum(sy);
+  sxy = warp_sum(sxy);
+  for (int o = 16; o > 0; o >>= 1) mmax = fmaxf(mmax, __shfl_xor_sync(kFull, mmax, o));
+  const float centroid = msum > 0.f ? fmsum / fmaxf(msum, kEps) : 0.f;
+  float bw = 0.f;  // second pass: sum (f - centroid)^2 m
+  for (int k = lane; k < f_bins; k += 32) {
+    const float d = fa.freq_logf[k].x - centroid;
+    bw += d * d * m[k];
+  }
+  bw = warp_sum(bw);
+  float* out = fa.feat + frame * kFeatLanes;
+  if (lane == 0) {
+    const float nb = (float)f_bins;
+    const float arith = msum / nb;
+    const float geo = expf(lsum / fmaxf(cnt, 1.f));
+    const float rms = sqrtf(psum / nb);
+    const float den = ns * sxx - sx * sx;
+    out[kSums] = centroid;
+    out[kSums + 1] = msum > 0.f ? sqrtf(bw / fmaxf(msum, kEps)) : 0.f;
+    out[kSums + 2] = (cnt > 0.f && arith > kEps) ? geo / fmaxf(arith, kEps) : 0.f;
+    out[kSums + 3] = rms > 0.f ? mmax / fmaxf(rms, kEps) : 0.f;
+    out[kSums + 4] = (ns >= 2.f && fabsf(den) > kEps) ? (ns * sxy - sx * sy) / den : 0.f;
+  }
+  // the 38 weighted sums of the power, one lane each
+  for (int o = lane; o < kSums; o += 32) {
+    float acc = 0.f;
+    for (int j = fa.row_ptr[o]; j < fa.row_ptr[o + 1]; ++j) acc += fa.weight[j] * p[fa.bin[j]];
+    if (o < kMel) {
+      out[o] = acc;
+    } else {
+      chroma[o - kMel] = acc;
+    }
+  }
+  __syncwarp();
+  // unit-sum chroma (pallas_stft.py:405-409)
+  if (lane < kChroma) {
+    float total = 0.f;
+    for (int j = 0; j < kChroma; ++j) total += chroma[j];
+    const float e = chroma[lane];
+    out[kMel + lane] = total > kEps ? e / fmaxf(total, kEps) : e;
+  }
+}
 
-  const int half = w >> 1;
-  const int f_bins = half + 1;
-  const int split = f_bins / 4;
+// Resident blocks per SM the registers must leave room for: at W <= 1024
+// the shared memory allows 6 (24 warps); without the bound the compiler
+// keeps the frame loop's twiddles and window in registers (128 at W = 1024,
+// 4 blocks per SM, 11 % slower: tools/profile_torch.py --ablate-stft).
+__host__ __device__ constexpr int min_blocks(int log2n) { return log2n <= 9 ? 6 : 3; }
+
+template <int kLog2N, bool kFeatures>
+__global__ void __launch_bounds__(kThreads, min_blocks(kLog2N)) stft_aux_kernel(
+    const float* __restrict__ sig, const float* __restrict__ window,
+    const float2* __restrict__ twiddle,  // FftPlan's table
+    float* __restrict__ mag, float* __restrict__ aux, FeatArgs fa,
+    int batch, int n, int t_frames, int hop, float pre_emph) {
+  constexpr int N = 1 << kLog2N;  // complex points, W / 2
+  constexpr int W = 2 * N;
+  constexpr int F = N + 1;
+  constexpr int kRounds = (F + 31) / 32;
+  using Plan = FftPlan<kLog2N>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Layout L(W, hop, kFeatures);
+  float* s_sig = smem;
+
   const int row = blockIdx.y;
-  const int t0 = blockIdx.x * kTile;
-  const int frames_here = min(kTile, t_frames - t0);
-  const int slice = (frames_here - 1) * hop + w;  // <= n - t0*hop by the frame count
+  const int t0 = blockIdx.x * L.tile;
+  const int frames_here = min(L.tile, t_frames - t0);
+  const int slice = (frames_here - 1) * hop + W;  // <= n - t0*hop by the frame count
   const float* x = sig + (size_t)row * n;
   const int s0 = t0 * hop;
 
@@ -142,213 +397,138 @@ __global__ void __launch_bounds__(kThreads) stft_aux_kernel(
     }
     s_sig[i] = v;
   }
-  for (int i = threadIdx.x; i < w; i += kThreads) s_win[i] = window[i];
-  for (int i = threadIdx.x; i <= half; i += kThreads) s_tw[i] = twiddle[i];
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int g0 = 0; g0 < frames_here; g0 += kGroup) {
-    const int ng = min(kGroup, frames_here - g0);
+  float* wbuf = smem + L.sig + warp * L.warp_buf;
+  float2* buf = reinterpret_cast<float2*>(wbuf);
+  const float2* win2 = reinterpret_cast<const float2*>(window);
+  const size_t plane = (size_t)batch * t_frames;
+  constexpr int kSplit = F / 4;
 
-    // 1. windowed frames packed as z[m] = x[2m] + i x[2m+1], bit-reversed
-    for (int i = threadIdx.x; i < kGroup * half; i += kThreads) {
-      const int f = i >> log2_half, m = i & (half - 1);
-      float2 z = make_float2(0.f, 0.f);
-      if (f < ng) {
-        const float* fr = s_sig + (g0 + f) * hop;
-        z = make_float2(fr[2 * m] * s_win[2 * m], fr[2 * m + 1] * s_win[2 * m + 1]);
-      }
-      s_buf[f * half + (__brev(m) >> (32 - log2_half))] = z;
-    }
-    __syncthreads();
+  for (int f = warp; f < frames_here; f += kWarps) {
+    const size_t frame = (size_t)row * t_frames + t0 + f;
+    const float* fr = s_sig + f * hop;
+    float sq = 0.f;
+    int zc = 0;
 
-    // 2. iterative radix-2 decimation-in-time FFT of length W/2
-    for (int s = 0; s < log2_half; ++s) {
-      const int m = 1 << s;                 // butterfly span
-      const int tw_stride = w >> (s + 1);   // exp(-2 pi i pos / 2m) = tw[pos * W / 2m]
-      for (int i = threadIdx.x; i < kGroup * (half >> 1); i += kThreads) {
-        const int f = i >> (log2_half - 1), b = i & ((half >> 1) - 1);
-        const int pos = b & (m - 1);
-        const int i0 = ((b >> s) << (s + 1)) + pos;
-        float2* a = s_buf + f * half;
-        const float2 u = a[i0];
-        const float2 v = cmul(a[i0 + m], s_tw[pos * tw_stride]);
-        a[i0] = make_float2(u.x + v.x, u.y + v.y);
-        a[i0 + m] = make_float2(u.x - v.x, u.y - v.y);
-      }
-      __syncthreads();
-    }
+    // 1. the FFT of z[m] = x[2m] w[2m] + i x[2m+1] w[2m+1], natural order in buf
+    fft_first_pass<N, 1 << Plan::log2_radix(0)>(fr, ((f * hop) & 1) == 0, win2, buf, lane, sq, zc);
+    __syncwarp();
+    fft_passes_from<kLog2N, 1>(buf, twiddle, lane);
 
-    // 3. real-FFT split: X[k] = E[k] + W^k O[k] with
-    //    E = (Z[k] + conj Z[N2-k]) / 2, O = (Z[k] - conj Z[N2-k]) / 2i
-    for (int i = threadIdx.x; i < kGroup * f_bins; i += kThreads) {
-      const int f = i / f_bins, k = i - f * f_bins;
-      if (f < ng) {
-        const float2* a = s_buf + f * half;
-        const float2 zk = a[k & (half - 1)];
-        const float2 zc = a[(half - k) & (half - 1)];
-        const float2 e = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y - zc.y));
-        const float2 o = make_float2(0.5f * (zk.y + zc.y), -0.5f * (zk.x - zc.x));
-        const float2 wo = cmul(s_tw[k], o);
-        const float re = e.x + wo.x, im = e.y + wo.y;
-        const float mg = sqrtf(re * re + im * im);
-        mag[((size_t)row * t_frames + t0 + g0 + f) * f_bins + k] = mg;
-        s_pow[f * f_bins + k] = mg * mg;
-        if constexpr (kFeatures) s_mag[f * f_bins + k] = mg;
+    // 2. real-FFT split for bins k = lane + 32 i: 2 X[k] = A + W^k (-i B) with
+    //    A = Z[k] + conj Z[N-k], B = Z[k] - conj Z[N-k]
+    float pw[kRounds], mg[kRounds];
+    float* out = mag + frame * F;
+#pragma unroll
+    for (int i = 0; i < kRounds; ++i) {
+      const int k = lane + 32 * i;
+      if (k < F) {
+        const float2 zk = buf[swz(k & (N - 1))];
+        const float2 zn = buf[swz((N - k) & (N - 1))];
+        const float2 a = make_float2(zk.x + zn.x, zk.y - zn.y);
+        const float2 wb = cmul(__ldg(twiddle + k), make_float2(zk.y + zn.y, zn.x - zk.x));
+        const float re = a.x + wb.x, im = a.y + wb.y;
+        mg[i] = 0.5f * sqrt_approx(re * re + im * im);
+        pw[i] = mg[i] * mg[i];
+        out[k] = mg[i];
       }
     }
-    __syncthreads();
+    __syncwarp();
+    float* s_pow = wbuf;        // [F], the complex points are dead
+    float* s_mag = wbuf + F;    // [F], feature epilogue only
+#pragma unroll
+    for (int i = 0; i < kRounds; ++i) {
+      const int k = lane + 32 * i;
+      if (k < F) {
+        s_pow[k] = pw[i];
+        if constexpr (kFeatures) s_mag[k] = mg[i];
+      }
+    }
+    __syncwarp();
 
-    // 4. epilogue: warps 0..3 read the spectra, warps 4..7 the samples
-    const size_t plane = (size_t)batch * t_frames;
-    if (warp < kGroup) {
-      const int f = warp;
-      if (f < ng) {
-        const float* p = s_pow + f * f_bins;
-        const int chunk = (f_bins + 31) / 32;
-        const int lo = min(lane * chunk, f_bins), hi = min(lo + chunk, f_bins);
-        float part = 0.f, low = 0.f, high = 0.f;
-        for (int k = lo; k < hi; ++k) {
-          part += p[k];
-          if (k < split) low += p[k]; else high += p[k];
-        }
-        float incl = part;  // inclusive scan of the lane chunks
-        for (int o = 1; o < 32; o <<= 1) {
-          const float y = __shfl_up_sync(kFull, incl, o);
-          if (lane >= o) incl += y;
-        }
-        const float total = __shfl_sync(kFull, incl, 31);
-        float run = __shfl_up_sync(kFull, incl, 1);
-        if (lane == 0) run = 0.f;
-        const float thr = kRolloff * total;
-        int first = f_bins;
-        for (int k = lo; k < hi; ++k) {
-          run += p[k];
-          if (run >= thr) { first = k; break; }
-        }
-        first = warp_min_int(first);
-        low = warp_sum(low);
-        high = warp_sum(high);
-        if (lane == 0) {
-          const size_t o = (size_t)row * t_frames + t0 + g0 + f;
-          const bool pos = total > 0.f;
-          aux[2 * plane + o] = pos ? (float)min(first, f_bins - 1) : 0.f;
-          aux[3 * plane + o] = pos ? low / fmaxf(total, kEps) : 0.f;
-          aux[4 * plane + o] = pos ? high / fmaxf(total, kEps) : 0.f;
+    // 3. aux epilogue: sums over contiguous lane chunks of the power, their
+    //    prefix scan, then the rolloff bin inside the chunk that reaches
+    //    0.85 of the total, one bin per lane
+    {
+      constexpr int kChunk = (F + 31) / 32;
+      float part = 0.f, low = 0.f, high = 0.f;
+#pragma unroll
+      for (int t = 0; t < kChunk; ++t) {
+        const int k = lane * kChunk + t;
+        if (k < F) {
+          const float pk = s_pow[k];
+          part += pk;
+          if (k < kSplit) low += pk; else high += pk;
         }
       }
-    } else {
-      const int f = warp - kGroup;
-      if (f < ng) {
-        const float* fr = s_sig + (g0 + f) * hop;
-        float sq = 0.f;
-        int zc = 0;
-        for (int j = lane; j < w; j += 32) {
-          const float v = fr[j];
-          sq += v * v;
-          if (j + 1 < w) zc += (v >= 0.f) != (fr[j + 1] >= 0.f);
-        }
-        sq = warp_sum(sq);
-        zc = warp_sum_int(zc);
-        if (lane == 0) {
-          const size_t o = (size_t)row * t_frames + t0 + g0 + f;
-          aux[o] = sqrtf(sq / (float)w);
-          aux[plane + o] = (float)zc;
-        }
+      float incl = part;  // inclusive scan of the lane chunks
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      const float total = __shfl_sync(kFull, incl, 31);
+      float run = __shfl_up_sync(kFull, incl, 1);
+      if (lane == 0) run = 0.f;
+      const float thr = kRolloff * total;
+      const unsigned reach = __ballot_sync(kFull, incl >= thr);  // lane 31 at least
+      const int cl = reach ? __ffs(reach) - 1 : 31;
+      const float base = __shfl_sync(kFull, run, cl);
+      const int kc = cl * kChunk + lane;
+      const bool in_chunk = lane < kChunk && kc < F;
+      float v = in_chunk ? s_pow[kc] : 0.f;
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_up_sync(kFull, v, o);
+        if (lane >= o) v += y;
+      }
+      const unsigned at = __ballot_sync(kFull, in_chunk && base + v >= thr);
+      const int first = at ? cl * kChunk + __ffs(at) - 1 : min(cl * kChunk + kChunk, F) - 1;
+      low = warp_sum(low);
+      high = warp_sum(high);
+      sq = warp_sum(sq);
+      zc = warp_sum_int(zc);
+      if (lane == 0) {
+        const bool pos = total > 0.f;
+        aux[frame] = sqrtf(sq / (float)W);
+        aux[plane + frame] = (float)zc;
+        aux[2 * plane + frame] = pos ? (float)min(first, F - 1) : 0.f;
+        aux[3 * plane + frame] = pos ? low / fmaxf(total, kEps) : 0.f;
+        aux[4 * plane + frame] = pos ? high / fmaxf(total, kEps) : 0.f;
       }
     }
 
-    // 5. feature epilogue (K10); steps 4 and 5a only read s_pow and s_mag
-    if constexpr (kFeatures) {
-      const size_t frame0 = (size_t)row * t_frames + t0 + g0;
-      if (warp < kGroup) {
-        // 5a. warps 0..3: one frame each, the descriptor sums
-        const int f = warp;
-        if (f < ng) {
-          const float* p = s_pow + f * f_bins;
-          const float* m = s_mag + f * f_bins;
-          float psum = 0.f, msum = 0.f, fmsum = 0.f, mmax = 0.f, cnt = 0.f, lsum = 0.f;
-          float ns = 0.f, sx = 0.f, sxx = 0.f, sy = 0.f, sxy = 0.f;
-          for (int k = lane; k < f_bins; k += 32) {
-            const float mk = m[k];
-            const float2 fl = fa.freq_logf[k];
-            psum += p[k];
-            msum += mk;
-            fmsum += mk * fl.x;
-            mmax = fmaxf(mmax, mk);
-            if (mk > kEps) {  // flatness: ln m over bins above the threshold
-              const float lm = logf(mk);
-              cnt += 1.f;
-              lsum += lm;
-              if (fl.x > 0.f) {  // slope: log10 m on log10 f, f > 0 too
-                const float y = lm * kInvLn10;
-                ns += 1.f;
-                sx += fl.y;
-                sxx += fl.y * fl.y;
-                sy += y;
-                sxy += y * fl.y;
-              }
-            }
-          }
-          psum = warp_sum(psum);
-          msum = warp_sum(msum);
-          fmsum = warp_sum(fmsum);
-          cnt = warp_sum(cnt);
-          lsum = warp_sum(lsum);
-          ns = warp_sum(ns);
-          sx = warp_sum(sx);
-          sxx = warp_sum(sxx);
-          sy = warp_sum(sy);
-          sxy = warp_sum(sxy);
-          for (int o = 16; o > 0; o >>= 1) mmax = fmaxf(mmax, __shfl_xor_sync(kFull, mmax, o));
-          const float centroid = msum > 0.f ? fmsum / fmaxf(msum, kEps) : 0.f;
-          float bw = 0.f;  // second pass: sum (f - centroid)^2 m
-          for (int k = lane; k < f_bins; k += 32) {
-            const float d = fa.freq_logf[k].x - centroid;
-            bw += d * d * m[k];
-          }
-          bw = warp_sum(bw);
-          if (lane == 0) {
-            float* out = fa.feat + (frame0 + f) * kFeatLanes + kSums;
-            const float nb = (float)f_bins;
-            const float arith = msum / nb;
-            const float geo = expf(lsum / fmaxf(cnt, 1.f));
-            const float rms = sqrtf(psum / nb);
-            const float den = ns * sxx - sx * sx;
-            out[0] = centroid;
-            out[1] = msum > 0.f ? sqrtf(bw / fmaxf(msum, kEps)) : 0.f;
-            out[2] = (cnt > 0.f && arith > kEps) ? geo / fmaxf(arith, kEps) : 0.f;
-            out[3] = rms > 0.f ? mmax / fmaxf(rms, kEps) : 0.f;
-            out[4] = (ns >= 2.f && fabsf(den) > kEps) ? (ns * sxy - sx * sy) / den : 0.f;
-          }
-        }
-      } else {
-        // 5a. warps 4..7: the 38 weighted sums of each frame's power
-        constexpr int kSumThreads = kThreads - kGroup * 32;
-        for (int i = threadIdx.x - kGroup * 32; i < ng * kSums; i += kSumThreads) {
-          const int f = i / kSums, o = i - f * kSums;
-          const float* p = s_pow + f * f_bins;
-          float acc = 0.f;
-          for (int j = fa.row_ptr[o]; j < fa.row_ptr[o + 1]; ++j) acc += fa.weight[j] * p[fa.bin[j]];
-          if (o < kMel) {
-            fa.feat[(frame0 + f) * kFeatLanes + o] = acc;
-          } else {
-            s_chroma[f * kChroma + o - kMel] = acc;
-          }
-        }
-      }
-      __syncthreads();
-      // 5b. unit-sum chroma (pallas_stft.py:405-409)
-      for (int i = threadIdx.x; i < ng * kChroma; i += kThreads) {
-        const int f = i / kChroma, c = i - f * kChroma;
-        const float* e = s_chroma + f * kChroma;
-        float total = 0.f;
-        for (int j = 0; j < kChroma; ++j) total += e[j];
-        fa.feat[(frame0 + f) * kFeatLanes + kMel + c] =
-            total > kEps ? e[c] / fmaxf(total, kEps) : e[c];
-      }
-    }
-    __syncthreads();  // s_buf, s_pow, s_mag and s_chroma are reused by the next group
+    // 4. feature epilogue (K10) on the same buffer
+    if constexpr (kFeatures) feature_epilogue(fa, s_pow, s_mag, wbuf + 2 * F, F, frame, lane);
+    __syncwarp();  // the buffer is reused by the warp's next frame
+  }
+}
+
+// Set the kernel's shared-memory size (and the carveout that lets 6 blocks
+// share an SM); *smem gets the bytes per block.
+template <int kLog2N, bool kFeatures>
+cudaError_t prepare(int hop, size_t* smem) {
+  *smem = sizeof(float) * Layout(2 << kLog2N, hop, kFeatures).total;
+  cudaError_t err = cudaFuncSetAttribute(stft_aux_kernel<kLog2N, kFeatures>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(*smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(stft_aux_kernel<kLog2N, kFeatures>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// fn(std::integral_constant<int, log2(W/2)>) for a supported window W.
+template <class Fn>
+int with_log2_half(int w, Fn&& fn) {
+  switch (w) {
+    case 64: return fn(std::integral_constant<int, 5>{});
+    case 128: return fn(std::integral_constant<int, 6>{});
+    case 256: return fn(std::integral_constant<int, 7>{});
+    case 512: return fn(std::integral_constant<int, 8>{});
+    case 1024: return fn(std::integral_constant<int, 9>{});
+    case 2048: return fn(std::integral_constant<int, 10>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -356,20 +536,19 @@ template <bool kFeatures>
 int launch_stft(const float* sig, const float* window, const float* twiddle, float* mag,
                 float* aux, FeatArgs fa, int batch, int n, int t_frames, int w, int hop,
                 float pre_emph, void* stream) {
-  if (w < 64 || w > 2048 || (w & (w - 1)) != 0 || hop < 1 || t_frames < 1 || batch < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int log2_half = 0;
-  while ((1 << log2_half) < w / 2) ++log2_half;
-  const size_t smem = sizeof(float) * Layout(w, hop, kFeatures).total;
-  cudaError_t err = cudaFuncSetAttribute(stft_aux_kernel<kFeatures>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((t_frames + kTile - 1) / kTile, batch);
-  stft_aux_kernel<kFeatures><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      sig, window, reinterpret_cast<const float2*>(twiddle), mag, aux, fa, batch, n, t_frames,
-      w, log2_half, hop, pre_emph);
-  return static_cast<int>(cudaGetLastError());
+  if (hop < 1 || t_frames < 1 || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return with_log2_half(w, [&](auto log2_half) {
+    constexpr int kLog2N = decltype(log2_half)::value;
+    size_t smem;
+    const cudaError_t err = prepare<kLog2N, kFeatures>(hop, &smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int tile = Layout(w, hop, kFeatures).tile;
+    const dim3 grid((t_frames + tile - 1) / tile, batch);
+    stft_aux_kernel<kLog2N, kFeatures><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        sig, window, reinterpret_cast<const float2*>(twiddle), mag, aux, fa, batch, n, t_frames,
+        hop, pre_emph);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -379,7 +558,8 @@ extern "C" const char* sonido_error_string(int code) {
 }
 
 // Launch K1 on `stream`. Window must be a power of two in [64, 2048];
-// returns the CUDA error code (0 on success).
+// twiddle is ops/hopper_stft.twiddle_table(W). Returns the CUDA error
+// code (0 on success).
 extern "C" int sonido_stft_aux(const float* sig, const float* window, const float* twiddle,
                                float* mag, float* aux, int batch, int n, int t_frames,
                                int w, int hop, float pre_emph, void* stream) {
@@ -398,4 +578,25 @@ extern "C" int sonido_stft_features(const float* sig, const float* window, const
   const FeatArgs fa{feat, row_ptr, bin, weight, reinterpret_cast<const float2*>(freq_logf)};
   return launch_stft<true>(sig, window, twiddle, mag, aux, fa, batch, n, t_frames, w, hop,
                            pre_emph, stream);
+}
+
+// The launch geometry of K1 (features = 0) or K10 (1) at window w, hop:
+// shared memory per block and resident blocks per SM on the current card.
+extern "C" int sonido_stft_occupancy(int w, int hop, int features, int* smem_bytes,
+                                     int* blocks_per_sm) {
+  if (hop < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto query = [&](auto log2_half, auto feat) {
+    constexpr int kLog2N = decltype(log2_half)::value;
+    constexpr bool kF = decltype(feat)::value;
+    size_t smem;
+    cudaError_t err = prepare<kLog2N, kF>(hop, &smem);
+    *smem_bytes = static_cast<int>(smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, stft_aux_kernel<kLog2N, kF>, kThreads, smem);
+    return static_cast<int>(err);
+  };
+  return with_log2_half(w, [&](auto log2_half) {
+    return features ? query(log2_half, std::true_type{}) : query(log2_half, std::false_type{});
+  });
 }

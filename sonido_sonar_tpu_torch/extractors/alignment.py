@@ -112,7 +112,7 @@ class AlignmentExtractor:
             method=method, max_lag=max_lag_frames, sample_rate=self.config.sample_rate,
             hop_size=self.config.hop_size, window_size=self.config.window_size,
             confidence_threshold=self.alignment_config.min_confidence,
-            dtw_band=self.alignment_config.dtw_band_radius,
+            dtw_band=self.alignment_config.dtw_band_radius, device=self.device,
         )
 
     def _align_with(self, feature_type: str, query, reference, sample_rate: int, method: str

@@ -65,11 +65,85 @@ _EPS = 1e-10
 _ROLLOFF = 0.85
 
 
+def fft_passes(half: int) -> Tuple[Tuple[int, int], ...]:
+    """(radix R, span Ns) of each pass of K1's `half`-point FFT, in the
+    order csrc/stft.cu's FftPlan runs them: radix-8 passes, then one of
+    radix 2 or 4 for what is left; Ns is the product of the earlier
+    radices (Stockham autosort, natural order out)."""
+    log2 = half.bit_length() - 1
+    radices = [8] * (log2 // 3) + ([1 << (log2 % 3)] if log2 % 3 else [])
+    passes, span = [], 1
+    for r in radices:
+        passes.append((r, span))
+        span *= r
+    return tuple(passes)
+
+
+def swizzle(i):
+    """The kernel's warp-buffer index (csrc/stft.cu swz), in complex
+    points: bits 3-6 flip bits 0-3, a permutation of [0, half)."""
+    return i ^ ((i >> 3) & 15)
+
+
 @functools.lru_cache(maxsize=8)
-def _twiddles(window_size: int) -> np.ndarray:
-    """[W/2 + 1, 2] (cos, sin) of -2 pi k / W, built in float64."""
-    ang = -2.0 * np.pi * np.arange(window_size // 2 + 1, dtype=np.float64) / window_size
-    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+def twiddle_table(window_size: int) -> np.ndarray:
+    """K1's twiddles as [T, 2] float32 (cos, sin), built in float64, in the
+    order the kernel reads them: at 0, exp(-2 pi i k / W) for k in
+    [0, W/2], the real-FFT split's; then for each pass p >= 1 of
+    `fft_passes` (pass 0 has span 1 and no twiddles), exp(-2 pi i q r /
+    (Ns R)) at (r - 1) Ns + q for r in [1, R), q in [0, Ns), so lanes of
+    neighbouring butterflies (q = j mod Ns) read neighbouring entries."""
+    half = window_size // 2
+    ang = [-2.0 * np.pi * np.arange(half + 1, dtype=np.float64) / window_size]
+    for radix, span in fft_passes(half)[1:]:
+        r = np.arange(1, radix, dtype=np.float64)[:, None]
+        q = np.arange(span, dtype=np.float64)[None, :]
+        ang.append((-2.0 * np.pi * q * r / (span * radix)).ravel())
+    a = np.concatenate(ang)
+    return np.stack([np.cos(a), np.sin(a)], axis=1).astype(np.float32)
+
+
+def fft_model(frames: np.ndarray) -> np.ndarray:
+    """numpy model of K1's per-frame transform, pass by pass with the
+    kernel's index maps: [..., W] windowed real frames -> [..., W/2 + 1]
+    complex64 spectrum, as np.fft.rfft gives it.
+
+    Butterfly j of a pass is lane j % 32's slot j // 32; it reads points
+    j + r * half/R of the warp buffer, multiplies point r >= 1 by table
+    entry (r - 1) Ns + (j mod Ns) of its pass, and writes the R-point DFT
+    to (j // Ns) Ns R + (j mod Ns) + r Ns; every buffer index goes through
+    `swizzle`. Pass 0 reads the packed frame z[m] = x[2m] + i x[2m+1]. The
+    split gives bin k = lane + 32 i from Z[k] and Z[half - k] (mod half)
+    and table entry k, halved at the end. Arithmetic in complex64 from the
+    float32 table."""
+    w = frames.shape[-1]
+    half = w // 2
+    tw = twiddle_table(w)
+    tw = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
+    x = np.asarray(frames, np.float32)
+    z = (x[..., 0::2] + 1j * x[..., 1::2]).astype(np.complex64)
+    buf = np.zeros_like(z)
+    offset = half + 1
+    for p, (radix, span) in enumerate(fft_passes(half)):
+        nb = half // radix
+        j = np.arange(nb)
+        r = np.arange(radix)
+        src = j[:, None] + r[None, :] * nb                      # [butterflies, R]
+        v = z[..., src] if p == 0 else buf[..., swizzle(src)]
+        if p > 0:
+            t = tw[offset + (r[None, 1:] - 1) * span + (j % span)[:, None]]
+            v = np.concatenate([v[..., :1], v[..., 1:] * t], axis=-1)
+            offset += (radix - 1) * span
+        v = np.fft.fft(v, axis=-1).astype(np.complex64)
+        dst = ((j // span) * span * radix + j % span)[:, None] + r[None, :] * span
+        buf = np.empty_like(buf)
+        buf[..., swizzle(dst)] = v
+    k = np.arange(half + 1)
+    zk = buf[..., swizzle(k & (half - 1))]
+    zc = np.conj(buf[..., swizzle((half - k) & (half - 1))])
+    # 2 X[k] = A + W^k (-i B), A = Z[k] + conj Z[N-k], B = Z[k] - conj Z[N-k]
+    return (np.complex64(0.5) * ((zk + zc) + tw[k] * (np.complex64(-1j) * (zk - zc)))).astype(
+        np.complex64)
 
 
 @functools.lru_cache(maxsize=8)
@@ -200,7 +274,7 @@ def stft_magnitude_hopper(
     mag = torch.empty((b, t, f_bins), dtype=torch.float32, device=dev)
     aux = torch.empty((len(AUX_KEYS), b, t), dtype=torch.float32, device=dev)
     window = device_table(make_window, (WindowType(window_type), window_size), dev)
-    twiddle = device_table(_twiddles, (window_size,), dev)
+    twiddle = device_table(twiddle_table, (window_size,), dev)
     geometry = (b, sig.shape[1], t, window_size, hop_size, float(pre_emph))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -35,6 +35,7 @@ from sonido_sonar_tpu_torch.ops.stats.correlation import (
     z_normalize,
 )
 from sonido_sonar_tpu_torch.ops.stats.dtw import DTWResult, dtw_align, dtw_align_banded
+from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, as_float32
 
 _EPS = 1e-10
 
@@ -97,8 +98,13 @@ class AlignmentResult:
     ambiguity: float = 0.0
 
 
-def _as_2d(x: torch.Tensor) -> torch.Tensor:
-    x = torch.as_tensor(x)
+def _on_device(x, device: Device) -> torch.Tensor:
+    """A tensor as it is; anything else as float32 on `device`."""
+    return x if isinstance(x, torch.Tensor) else as_float32(x, device)
+
+
+def _as_2d(x, device: Device) -> torch.Tensor:
+    x = _on_device(x, device)
     return x[:, None] if x.dim() == 1 else x
 
 
@@ -110,11 +116,13 @@ def _path_host(dtw: DTWResult):
 
 
 class AlignmentAnalyzer:
-    """AlignmentAnalyzer (alignment.go:22-84)."""
+    """AlignmentAnalyzer (alignment.go:22-84). Numpy input goes to
+    `device` (the card by default); a tensor keeps its own device."""
 
     def __init__(self, method: str = "hybrid", max_lag: int = 0, sample_rate: int = 44100,
                  hop_size: int = 512, window_size: int = 2048,
-                 confidence_threshold: float = 0.6, dtw_band: int = -1):
+                 confidence_threshold: float = 0.6, dtw_band: int = -1,
+                 device: Device = DEFAULT_DEVICE):
         self.method = method
         self.max_lag = max_lag
         self.sample_rate = sample_rate
@@ -122,12 +130,13 @@ class AlignmentAnalyzer:
         self.window_size = window_size
         self.confidence_threshold = confidence_threshold
         self.dtw_band = dtw_band
+        self.device = torch.device(device)
 
     def align_features(self, query: torch.Tensor, reference: torch.Tensor,
                        sample_rate: int = 0) -> AlignmentResult:
         """AlignFeatures (alignment.go:84-106): [T, D] or [T] series."""
         sr = sample_rate or self.sample_rate
-        query, reference = _as_2d(query), _as_2d(reference)
+        query, reference = _as_2d(query, self.device), _as_2d(reference, self.device)
         if self.method == "dtw":
             return self._align_dtw(query, reference, sr)
         if self.method in ("correlation", "cross_correlation"):
@@ -143,8 +152,9 @@ class AlignmentAnalyzer:
         from sonido_sonar_tpu_torch.ops.temporal import short_time_energy
 
         sr = sample_rate or self.sample_rate
-        q = short_time_energy(torch.as_tensor(query_pcm), self.window_size, self.hop_size)
-        r = short_time_energy(torch.as_tensor(reference_pcm), self.window_size, self.hop_size)
+        q = short_time_energy(_on_device(query_pcm, self.device), self.window_size, self.hop_size)
+        r = short_time_energy(_on_device(reference_pcm, self.device), self.window_size,
+                              self.hop_size)
         return self.align_features(q[:, None], r[:, None], sr)
 
     def find_best_alignment(self, query: torch.Tensor, reference: torch.Tensor,
@@ -265,7 +275,7 @@ class AlignmentAnalyzer:
         (alignment.go:710-795)."""
         if num_trials < 2:
             num_trials = 5
-        query, reference = _as_2d(query), _as_2d(reference)
+        query, reference = _as_2d(query, self.device), _as_2d(reference, self.device)
         q = query.detach().cpu().numpy().astype(np.float64)
         offsets = []
         for _ in range(num_trials):

@@ -19,7 +19,9 @@ Counterpart of `sonido_sonar_tpu/parallel/pipeline.py`:
   banded DTW fill and backtrack kernels), `batched_refine_offsets`,
   `batched_phat_candidates` and `batched_phat_global` (GCC-PHAT, plain
   `torch.fft` on every device).
-On a CPU tensor every kernel runs its plain PyTorch version.
+On a CPU tensor every kernel runs its plain PyTorch version. Each
+function takes `device` (the card by default): a tensor stays on its own
+device, numpy input goes to `device` (utils/device.as_float32).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from sonido_sonar_tpu_torch.ops.stft import spectral_flux
 from sonido_sonar_tpu_torch.ops.tables import device_table
 from sonido_sonar_tpu_torch.ops.temporal import energy_variance
 from sonido_sonar_tpu_torch.ops.tonal import chord_matrix
+from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, as_float32
 
 _EPS = 1e-10
 FEAT_EPILOGUE_ENV = "SONIDO_ENABLE_FEAT_EPILOGUE"
@@ -81,6 +84,7 @@ def batched_fingerprint_features(
     enable_contrast: bool = True,
     enable_pitch: bool = True,
     pre_emphasis_coeff: float = 0.97,
+    device: Device = DEFAULT_DEVICE,
 ) -> Dict[str, torch.Tensor]:
     """[B, N] PCM -> dict of [B, ...] float32 feature tensors.
 
@@ -97,8 +101,8 @@ def batched_fingerprint_features(
     come from its lanes (JAX `pipeline.py:119-141`); the keys, shapes and
     dtypes are those of the default configuration.
     """
-    require_fp32_matmuls(pcm, "batched_fingerprint_features")
-    x = pcm.to(torch.float32).contiguous()
+    x = as_float32(pcm, device).contiguous()
+    require_fp32_matmuls(x, "batched_fingerprint_features")
     params = MFCCParams(num_coefficients=mfcc_coefficients)
     out: Dict[str, torch.Tensor] = {}
     if feat_epilogue_enabled(mfcc_coefficients):
@@ -166,11 +170,12 @@ def spectral_tilt_1024(x: torch.Tensor) -> torch.Tensor:
     )
 
 
-def batched_speech_analysis(pcm: torch.Tensor, sample_rate: int) -> Dict[str, torch.Tensor]:
+def batched_speech_analysis(pcm: torch.Tensor, sample_rate: int,
+                            device: Device = DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
     """The speech-analysis stack (LPC -> formants -> voice quality ->
     speech detection, ops/speech.py) over [B, N] PCM, as a dict of
     [B]-leading results."""
-    res = analyze_speech(pcm.to(torch.float32), sample_rate)
+    res = analyze_speech(as_float32(pcm, device), sample_rate)
     return {
         "formant_frequencies": res.formants.frequencies,
         "formant_count": res.formants.count,
@@ -190,15 +195,17 @@ def batched_speech_extractor_features(
     sample_rate: int = 44100,
     window_size: int = 1024,
     hop_size: int = 256,
+    device: Device = DEFAULT_DEVICE,
 ) -> Dict[str, torch.Tensor]:
     """The speech extractor's whole surface (extractors/speech.go): the
     fingerprint features (no chroma) + the speech analysis chain on the
     speech-pre-emphasized signal + spectral tilt, pauses and speech rate."""
+    pcm = as_float32(pcm, device)
     out = batched_fingerprint_features(
         pcm, sample_rate=sample_rate, window_size=window_size,
         hop_size=hop_size, enable_chroma=False, enable_contrast=True,
     )
-    x = pre_emphasis_for_content(pcm.to(torch.float32), "speech")
+    x = pre_emphasis_for_content(pcm, "speech")
     out.update(batched_speech_analysis(x, sample_rate))
     # the extractor gates tilt on is_speech (extractors/speech.py)
     out["spectral_tilt"] = torch.where(out["is_speech"][..., None], spectral_tilt_1024(x), 0.0)
@@ -216,6 +223,7 @@ def batched_music_extractor_features(
     hop_size: int = 256,
     enable_cqt: bool = False,
     enable_hpcp: bool = False,
+    device: Device = DEFAULT_DEVICE,
 ) -> Dict[str, torch.Tensor]:
     """The music extractor's whole surface (extractors/music.go:178-243)
     over [B, N] PCM: DC removal + music pre-emphasis, the descriptor
@@ -228,8 +236,8 @@ def batched_music_extractor_features(
             "batched_music_extractor_features: CQT and HPCP chromas are not ported "
             "yet (ROADMAP queue 1, item 9: ops/chroma.py chroma_cqt, hpcp_from_magnitude)"
         )
-    require_fp32_matmuls(pcm, "batched_music_extractor_features")
-    x = pcm.to(torch.float32).contiguous()
+    x = as_float32(pcm, device).contiguous()
+    require_fp32_matmuls(x, "batched_music_extractor_features")
     pre = pre_emphasis_for_content(dc_removal(x), "music")
     mag, _ = stft_magnitude_hopper(x, window_size, hop_size)
     t = mag.shape[-2]
@@ -312,13 +320,16 @@ def batched_music_extractor_features(
 # ---------------------------------------------------------------------
 
 def batched_pair_alignment(
-    query_energy: torch.Tensor, reference_energy: torch.Tensor, max_lag: int
+    query_energy: torch.Tensor, reference_energy: torch.Tensor, max_lag: int,
+    device: Device = DEFAULT_DEVICE,
 ) -> Dict[str, torch.Tensor]:
     """Source/CDN alignment over energy series [B, T]: per-pair peak lag
     in frames (positive = reference delayed), peak correlation and SNR."""
     from sonido_sonar_tpu_torch.ops.stats.alignment import _ncc_arrays
     from sonido_sonar_tpu_torch.ops.stats.correlation import _peak_metrics
 
+    query_energy = as_float32(query_energy, device)
+    reference_energy = as_float32(reference_energy, device)
     t1, t2 = query_energy.shape[-1], reference_energy.shape[-1]
     corr = _ncc_arrays(query_energy, reference_energy, max_lag, t1, t2)
     peak_corr, peak_lag, _idx, _p, snr, *_rest = _peak_metrics(corr, max_lag, t1, t2)
@@ -326,7 +337,8 @@ def batched_pair_alignment(
 
 
 def batched_pair_dtw(
-    query_feats: torch.Tensor, reference_feats: torch.Tensor, band: int
+    query_feats: torch.Tensor, reference_feats: torch.Tensor, band: int,
+    device: Device = DEFAULT_DEVICE,
 ) -> Dict[str, torch.Tensor]:
     """Banded DTW over feature-sequence pairs [B, T, D]: one fill and one
     backtrack launch over the batch (the kernels on a CUDA tensor), then
@@ -336,9 +348,10 @@ def batched_pair_dtw(
     from sonido_sonar_tpu_torch.ops.stats.hopper_backtrack import backtrack_banded_hopper
     from sonido_sonar_tpu_torch.ops.stats.hopper_dtw import fill_banded_hopper
 
-    n, m = query_feats.shape[1], reference_feats.shape[1]
-    costs = fill_banded_hopper(query_feats.to(torch.float32).contiguous(),
-                               reference_feats.to(torch.float32).contiguous(), band, n, m)
+    q = as_float32(query_feats, device).contiguous()
+    r = as_float32(reference_feats, device).contiguous()
+    n, m = q.shape[1], r.shape[1]
+    costs = fill_banded_hopper(q, r, band, n, m)
     qs, rs, _, lengths = backtrack_banded_hopper(costs, band, n, m)
     dists = costs[:, n, m - n + band] / torch.clamp_min(lengths, 1).to(torch.float32)
     idx = torch.arange(qs.shape[-1], device=qs.device)
@@ -389,18 +402,20 @@ def _phat_geometry(n1: int, n2: int, hop_size: int, search_hops: int, max_offset
 def batched_refine_offsets(
     query_pcm: torch.Tensor, reference_pcm: torch.Tensor, coarse_offsets_seconds: torch.Tensor,
     sample_rate: int, hop_size: int = 256, search_hops: int = 24, max_offset_samples: int = 0,
+    device: Device = DEFAULT_DEVICE,
 ) -> torch.Tensor:
     """Exact-sample refinement of [B] coarse offsets (seconds, positive =
     reference delayed) by GCC-PHAT over +-search_hops hops, [B, N1] x
     [B, N2] PCM -> [B] float32 seconds. |coarse| is bounded by
     `max_offset_samples` (default N // 4)."""
+    query_pcm, reference_pcm = as_float32(query_pcm, device), as_float32(reference_pcm, device)
     n1, n2 = query_pcm.shape[-1], reference_pcm.shape[-1]
     max_off, length, max_lag, n_fft = _phat_geometry(n1, n2, hop_size, search_hops,
                                                      max_offset_samples)
-    coarse = torch.round(coarse_offsets_seconds.to(torch.float32) * sample_rate).to(torch.int32)
+    coarse = torch.round(as_float32(coarse_offsets_seconds, device) * sample_rate).to(torch.int32)
     coarse = torch.clamp(coarse, -max_off, max_off)
-    q = _windows(query_pcm.to(torch.float32), torch.clamp(-coarse, 0, n1 - length), length)
-    r = _windows(reference_pcm.to(torch.float32), torch.clamp(coarse, 0, n2 - length), length)
+    q = _windows(query_pcm, torch.clamp(-coarse, 0, n1 - length), length)
+    r = _windows(reference_pcm, torch.clamp(coarse, 0, n2 - length), length)
     window = _phat_cc(q, r, n_fft, max_lag)
     residual = -(torch.argmax(window, dim=-1).to(torch.int32) - max_lag)
     return (coarse + residual).to(torch.float32) / float(sample_rate)
@@ -409,17 +424,19 @@ def batched_refine_offsets(
 def batched_phat_candidates(
     query_pcm: torch.Tensor, reference_pcm: torch.Tensor, cand_offsets_seconds: torch.Tensor,
     sample_rate: int, hop_size: int = 256, search_hops: int = 24, max_offset_samples: int = 0,
+    device: Device = DEFAULT_DEVICE,
 ) -> tuple:
     """GCC-PHAT refinement and whitened-peak strength of K candidate
     offsets per pair: [B, N1] x [B, N2] PCM, [B, K] seconds ->
     (refined [B, K] seconds, peaks [B, K])."""
+    query_pcm, reference_pcm = as_float32(query_pcm, device), as_float32(reference_pcm, device)
     n1, n2 = query_pcm.shape[-1], reference_pcm.shape[-1]
     max_off, length, max_lag, n_fft = _phat_geometry(n1, n2, hop_size, search_hops,
                                                      max_offset_samples)
-    coarse = torch.round(cand_offsets_seconds.to(torch.float32) * sample_rate).to(torch.int32)
+    coarse = torch.round(as_float32(cand_offsets_seconds, device) * sample_rate).to(torch.int32)
     coarse = torch.clamp(coarse, -max_off, max_off)
-    q = _windows(query_pcm.to(torch.float32), torch.clamp(-coarse, 0, n1 - length), length)
-    r = _windows(reference_pcm.to(torch.float32), torch.clamp(coarse, 0, n2 - length), length)
+    q = _windows(query_pcm, torch.clamp(-coarse, 0, n1 - length), length)
+    r = _windows(reference_pcm, torch.clamp(coarse, 0, n2 - length), length)
     window = _phat_cc(q, r, n_fft, max_lag)
     idx = torch.argmax(window, dim=-1)
     peaks = torch.gather(window, -1, idx[..., None])[..., 0]
@@ -428,15 +445,16 @@ def batched_phat_candidates(
 
 
 def batched_phat_global(
-    query_pcm: torch.Tensor, reference_pcm: torch.Tensor, sample_rate: int, max_lag_samples: int
+    query_pcm: torch.Tensor, reference_pcm: torch.Tensor, sample_rate: int, max_lag_samples: int,
+    device: Device = DEFAULT_DEVICE,
 ) -> tuple:
     """Whitened full-range GCC-PHAT scan per pair, [B, N] x 2 ->
     ([B] offset seconds, [B] peak); positive offset = reference delayed."""
+    query_pcm, reference_pcm = as_float32(query_pcm, device), as_float32(reference_pcm, device)
     length = min(query_pcm.shape[-1], reference_pcm.shape[-1])
     max_lag = min(max_lag_samples, length - 1)
     n_fft = _pow2_at_least(length + max_lag)
-    window = _phat_cc(query_pcm.to(torch.float32)[..., :length],
-                      reference_pcm.to(torch.float32)[..., :length], n_fft, max_lag)
+    window = _phat_cc(query_pcm[..., :length], reference_pcm[..., :length], n_fft, max_lag)
     idx = torch.argmax(window, dim=-1)
     peaks = torch.gather(window, -1, idx[..., None])[..., 0]
     offsets = -(idx.to(torch.int32) - max_lag).to(torch.float32) / float(sample_rate)

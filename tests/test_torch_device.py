@@ -20,8 +20,11 @@ from sonido_sonar_tpu_torch.extractors.alignment import AlignmentExtractor  # no
 from sonido_sonar_tpu_torch.fingerprint import FingerprintGenerator  # noqa: E402
 from sonido_sonar_tpu_torch.fingerprint.content_detector import ContentDetector  # noqa: E402
 from sonido_sonar_tpu_torch.io.audio import AudioData, AudioMetadata  # noqa: E402
+from sonido_sonar_tpu_torch.models import FingerprintModel  # noqa: E402
 from sonido_sonar_tpu_torch.monitor import _RollingWindow  # noqa: E402
+from sonido_sonar_tpu_torch.ops.stats.alignment import AlignmentAnalyzer  # noqa: E402
 from sonido_sonar_tpu_torch.ops.stats import batched_alignment as tba  # noqa: E402
+from sonido_sonar_tpu_torch.parallel import pipeline as tpipe  # noqa: E402
 from sonido_sonar_tpu_torch.utils import parity  # noqa: E402
 from sonido_sonar_tpu_torch.utils.device import as_float32  # noqa: E402
 
@@ -49,8 +52,10 @@ def _news(x):
     lambda: LatencyMonitor(CFG)._src,
     lambda: FleetMonitor(CFG, n_streams=2)._cdn,
     lambda: _RollingWindow(16),
+    lambda: FingerprintModel(),
+    lambda: AlignmentAnalyzer(),
 ], ids=["generator", "generator_detector", "detector", "extractor", "latency_monitor",
-        "fleet_monitor", "latency_window", "fleet_window", "window"])
+        "fleet_monitor", "latency_window", "fleet_window", "window", "model", "analyzer"])
 def test_default_device_is_the_card(make):
     assert make().device == CARD
 
@@ -72,7 +77,55 @@ def _default_calls():
         "hybrid_device": lambda: tba.batched_hybrid_align_device(e, e, 2, 256, SR)["offset_samples"],
         "align_audio": lambda: tba.batched_align_audio(x, x, SR, 1024, 256, 0.2)["offset_samples"],
         "helper": lambda: as_float32(x),
+        **{name: (lambda call=call: call(_entry_inputs(), {}))
+           for name, call in _ENTRY_CALLS.items()},
     }
+
+
+def _entry_inputs(seconds=1.0):
+    """Numpy inputs of the entry points below: two PCM batches [2, N],
+    their energy series [2, T], coarse offsets [2] and candidates [2, 2]."""
+    x = _clips(2, seconds)
+    y = np.ascontiguousarray(np.roll(x[::-1], 40, axis=-1))
+    return {"x": x, "y": y, "eq": np.abs(x[:, ::64]), "er": np.abs(y[:, ::64]),
+            "coarse": np.array([0.01, -0.02], np.float32),
+            "cands": np.array([[0.0, 0.01], [-0.02, 0.0]], np.float32)}
+
+
+def _analyzer(**kw):
+    return AlignmentAnalyzer(method="hybrid", max_lag=8, sample_rate=SR, hop_size=256,
+                             window_size=1024, **kw)
+
+
+_GEOMETRY = FeatureConfig(sample_rate=SR, window_size=1024, hop_size=256)
+
+# The entry points of parallel/pipeline.py, FingerprintModel and the
+# AlignmentAnalyzer methods, each as call(inputs, device kwargs) over
+# _entry_inputs(): the pipeline functions and the model take `device`, the
+# analyzer takes it at construction.
+_ENTRY_CALLS = {
+    "fingerprint_features": lambda a, kw: tpipe.batched_fingerprint_features(
+        a["x"], SR, 1024, 256, **kw),
+    "speech_analysis": lambda a, kw: tpipe.batched_speech_analysis(a["x"], SR, **kw),
+    "speech_extractor": lambda a, kw: tpipe.batched_speech_extractor_features(a["x"], SR, **kw),
+    "music_extractor": lambda a, kw: tpipe.batched_music_extractor_features(a["x"], SR, **kw),
+    "pair_alignment": lambda a, kw: tpipe.batched_pair_alignment(a["eq"], a["er"], 8, **kw),
+    "pair_dtw": lambda a, kw: tpipe.batched_pair_dtw(a["eq"][..., None], a["er"][..., None], 6,
+                                                    **kw),
+    "refine_offsets": lambda a, kw: tpipe.batched_refine_offsets(
+        a["x"], a["y"], a["coarse"], SR, search_hops=2, **kw),
+    "phat_candidates": lambda a, kw: tpipe.batched_phat_candidates(
+        a["x"], a["y"], a["cands"], SR, search_hops=2, **kw),
+    "phat_global": lambda a, kw: tpipe.batched_phat_global(a["x"], a["y"], SR, 400, **kw),
+    "model": lambda a, kw: FingerprintModel(_GEOMETRY, **kw)(a["x"]),
+    "analyzer_align_features": lambda a, kw: _analyzer(**kw).align_features(a["eq"][0],
+                                                                            a["er"][0]),
+    "analyzer_align_audio": lambda a, kw: _analyzer(**kw).align_audio(a["x"][0], a["y"][0]),
+    "analyzer_find_best": lambda a, kw: _analyzer(**kw).find_best_alignment(a["eq"][0],
+                                                                            a["er"][0]),
+    "analyzer_consistency": lambda a, kw: _analyzer(**kw).analyze_alignment_consistency(
+        a["eq"][0], a["er"][0], num_trials=2),
+}
 
 
 def _pushed(mon, row):
@@ -87,7 +140,7 @@ def _pushed_all(fleet, rows):
 
 @pytest.mark.parametrize("name", ["generator_batch", "generator_clip", "detector", "extractor",
                                   "latency_monitor", "fleet_monitor", "hybrid", "hybrid_device",
-                                  "align_audio", "helper"])
+                                  "align_audio", "helper", *_ENTRY_CALLS])
 def test_numpy_input_goes_to_the_card_by_default(name):
     """Without a card the default call raises torch's error instead of
     running on the CPU; with one, the result lies on the card."""
@@ -147,3 +200,52 @@ def test_cpu_device_gives_what_a_cpu_tensor_gives():
     got = tba.batched_align_audio(x, x[::-1].copy(), SR, 1024, 256, 0.2, device="cpu")
     want = tba.batched_align_audio(xt, xt.flip(0), SR, 1024, 256, 0.2)
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def _leaves(out):
+    """The tensors, arrays and numbers of an entry point's result, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [v for k in out for v in _leaves(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [v for item in out for v in _leaves(item)]
+    if hasattr(out, "__dataclass_fields__"):
+        return [v for k in out.__dataclass_fields__ for v in _leaves(getattr(out, k))]
+    return [out]
+
+
+@pytest.mark.parametrize("name", list(_ENTRY_CALLS))
+def test_cpu_device_on_numpy_equals_cpu_tensors(name):
+    """device="cpu" with numpy input gives exactly what the same data as
+    CPU tensors gives: the pipeline functions, the model and the
+    AlignmentAnalyzer methods."""
+    a = _entry_inputs()
+    got = _leaves(_ENTRY_CALLS[name](a, {"device": "cpu"}))
+    want = _leaves(_ENTRY_CALLS[name]({k: torch.from_numpy(v) for k, v in a.items()}, {}))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, torch.Tensor):
+            assert g.device.type == "cpu" and g.dtype == w.dtype
+            assert torch.equal(g, w)
+        elif isinstance(w, np.ndarray):
+            np.testing.assert_array_equal(g, w)
+        else:
+            assert g == w or (g != g and w != w)
+
+
+def test_numpy_main_path_on_cpu_matches_jax():
+    """batched_fingerprint_features on numpy with device="cpu" against the
+    JAX package's on the same [2, 44100] seed, within utils/parity's
+    whole-path tolerances."""
+    import jax.numpy as jnp
+
+    from sonido_sonar_tpu.parallel.pipeline import batched_fingerprint_features as jax_features
+
+    x = parity.synth_pcm(2, 44100, 0, 44100).numpy()
+    got = {k: v.numpy() for k, v in tpipe.batched_fingerprint_features(x, device="cpu").items()}
+    ref = {k: np.asarray(v) for k, v in jax_features(jnp.asarray(x)).items()}
+    near = parity.near_zero_frames(x, 1024, 256, 0.97)
+    errors, failures = parity.check_features(got, ref, near, 44100, 1024)
+    assert not failures, (failures, errors)
+    assert len(got) == 19

@@ -29,9 +29,12 @@ from sonido_sonar_tpu.ops.pallas_stft import stft_magnitude_pallas  # noqa: E402
 from sonido_sonar_tpu.ops.pallas_yin import yin_difference_pallas, yin_pitch_pallas  # noqa: E402
 from sonido_sonar_tpu.ops.stft import stft as j_stft  # noqa: E402
 from sonido_sonar_tpu_torch import _build  # noqa: E402
+from sonido_sonar_tpu_torch.config.config import WindowType  # noqa: E402
+from sonido_sonar_tpu_torch.ops import filters as tfilters  # noqa: E402
 from sonido_sonar_tpu_torch.ops import framing as tframing  # noqa: E402
 from sonido_sonar_tpu_torch.ops import hopper_onsets, hopper_stft, hopper_yin  # noqa: E402
 from sonido_sonar_tpu_torch.ops import pitch as tpitch  # noqa: E402
+from sonido_sonar_tpu_torch.ops import windows as twindows  # noqa: E402
 from sonido_sonar_tpu_torch.utils import parity  # noqa: E402
 
 torch.set_num_threads(1)
@@ -161,6 +164,68 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         hopper_yin.yin_difference_hopper(x, 1024, 512)
 
 
+K1_WINDOWS = [64, 128, 256, 512, 1024, 2048]
+
+
+@pytest.mark.parametrize("w", K1_WINDOWS)
+def test_k1_fft_schedule_model_matches_rfft(w):
+    """The numpy model of K1's warp FFT (its pass order, lane and buffer
+    index maps, swizzle and twiddle-table reads) against np.fft.rfft of
+    the same windowed, pre-emphasized frames, to 1e-5 of each frame's
+    peak; a frame of zeros gives zeros."""
+    x = torch.from_numpy(_pcm(2, 0.25, 30))
+    frames = tframing.frame_signal(tfilters.pre_emphasis(x, PRE), w, w // 4)
+    windowed = frames.numpy() * twindows.make_window(WindowType.HANN, w)
+    got = hopper_stft.fft_model(windowed)
+    ref = np.fft.rfft(windowed.astype(np.float64), axis=-1)
+    peak = np.abs(ref).max(axis=-1, keepdims=True)
+    assert got.shape == ref.shape and got.dtype == np.complex64
+    assert (np.abs(got - ref) <= 1e-5 * peak).all()
+    assert not hopper_stft.fft_model(np.zeros((1, w), np.float32)).any()
+
+
+@pytest.mark.parametrize("w", K1_WINDOWS)
+def test_k1_fft_tables_follow_the_pass_plan(w):
+    """The twiddle table holds the split's W/2 + 1 entries and (R - 1) Ns
+    per pass after the first, every entry on the unit circle; the swizzle
+    permutes the warp buffer's W/2 points."""
+    half = w // 2
+    passes = hopper_stft.fft_passes(half)
+    assert np.prod([r for r, _ in passes]) == half
+    assert [ns for _, ns in passes] == list(np.cumprod([1] + [r for r, _ in passes[:-1]]))
+    tw = hopper_stft.twiddle_table(w)
+    assert tw.shape == (half + 1 + sum((r - 1) * ns for r, ns in passes[1:]), 2)
+    np.testing.assert_allclose(np.hypot(tw[:, 0], tw[:, 1]), 1.0, atol=1e-7)
+    assert sorted(hopper_stft.swizzle(np.arange(half))) == list(range(half))
+
+
+def _bank_ways(idx):
+    """Worst bank conflict of one warp's 64-bit shared-memory access (lane
+    -> float2 index, -1 idle): served per half-warp, 16 bank pairs."""
+    ways = 1
+    for h in (idx[:16], idx[16:]):
+        h = np.unique(h[h >= 0])
+        if h.size:
+            ways = max(ways, int(np.bincount(h % 16).max()))
+    return ways
+
+
+@pytest.mark.parametrize("w", K1_WINDOWS)
+def test_k1_fft_buffer_accesses_are_free_of_bank_conflicts(w):
+    """Every FFT pass's loads and stores through the swizzle, with
+    butterfly j on lane j % 32, serve each half-warp in one wavefront."""
+    half = w // 2
+    lanes = np.arange(32)
+    for p, (radix, span) in enumerate(hopper_stft.fft_passes(half)):
+        nb = half // radix
+        for slot in range(-(-nb // 32)):
+            j = lanes + 32 * slot
+            for r in range(radix):
+                dst = (j // span) * span * radix + j % span + r * span
+                for idx in ([dst] if p == 0 else [j + r * nb, dst]):
+                    assert _bank_ways(np.where(j < nb, hopper_stft.swizzle(idx), -1)) == 1, (p, r)
+
+
 @pytest.mark.parametrize("hop,rows", [(512, 2), (256, 1)])
 def test_k3_plain_matches_pallas_interpret(hop, rows):
     """The difference rows at 1024/512 and 1024/256 (a 1-D row): atol 2e-4
@@ -237,6 +302,7 @@ def test_build_command_targets_hopper(tmp_path, monkeypatch):
     assert sigs["sonido_yin_pitch"][:4] == (P, P, P, P)  # sig, pitch, conf, amp (nullable)
     assert sigs["sonido_yin_pitch"][-1] == P and len(sigs["sonido_yin_pitch"]) == 15
     assert sigs["sonido_stft_features"] == (P,) * 10 + (I,) * 5 + (F, P)
+    assert sigs["sonido_stft_occupancy"] == (I, I, I, P, P)
     assert sigs["sonido_yin_difference"] == (P, P, I, I, I, I, I, P)
     assert sigs["sonido_contrast_band_means"] == (P, P, P, P, L, I, I, P)
     assert sigs["sonido_thin_onsets"] == (P, P, I, I, I, P)

@@ -10,13 +10,27 @@ busy share (sum of kernel times over wall time) and the 40 CUDA kernels
 with the most device time. With SONIDO_ENABLE_FEAT_EPILOGUE=1 in the
 environment the step is the feature-epilogue configuration's.
 Needs a CUDA card; inputs come from utils/parity.synth_pcm with seed 0.
+
+    python3 tools/profile_torch.py --ablate-stft [NAME ...]
+
+times K1 and K10 (window 1024, hop 256) built from edited copies of
+csrc/stft.cu instead, one STFT_ABLATIONS entry each, all in one call on
+one card: each copy of the package builds into its own _build/ in a
+temporary directory and runs in its own process. A variant that drops a
+part gives wrong outputs (its parity line says so) and measures only
+that part's share of the kernel's time; the others show what a design
+choice is worth.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -26,11 +40,82 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 
+# name -> regex edits of csrc/stft.cu (each must match exactly once)
+STFT_ABLATIONS = {
+    "shipped": [],
+    "no_register_bound": [(r"__launch_bounds__\(kThreads, min_blocks\(kLog2N\)\)",
+                           "__launch_bounds__(kThreads)")],
+    "ieee_sqrt": [(r"sqrt_approx\(re \* re \+ im \* im\)", "sqrtf(re * re + im * im)")],
+    "tile_12_frames": [(r"kTileMax = 16;", "kTileMax = 12;")],
+    "drop_magnitude_stores": [(r"\n        out\[k\] = mg\[i\];", "")],
+    "drop_passes_after_0": [(r"\n    fft_passes_from<kLog2N, 1>\(buf, twiddle, lane\);", "")],
+    "drop_rolloff_search": [(r"__ballot_sync\(kFull, in_chunk && base \+ v >= thr\)", "0u")],
+}
+
+_ABLATION_RUN = r"""
+import re, torch
+from sonido_sonar_tpu_torch import _build
+from sonido_sonar_tpu_torch.ops import hopper_stft as H
+from sonido_sonar_tpu_torch.utils import parity
+log = _build.build()[1].compiler_log
+found = re.findall(r"stft_aux_kernelILi9ELb([01])E[^']*' for.*?(\d+) bytes spill stores.*?"
+                   r"Used (\d+) registers", log, re.S)
+x = parity.synth_pcm(128, 30 * 44100, 1, 44100, "cuda")
+mag, aux = H.stft_magnitude_hopper(x, 1024, 256, pre_emph=0.97)
+pmag, paux = H.stft_magnitude_plain(x, 1024, 256, pre_emph=0.97)
+host = lambda d: {k: v.cpu().numpy() for k, v in d.items()}
+_, failures = parity.check_stft_aux(mag.cpu().numpy(), host(aux), pmag.cpu().numpy(), host(paux),
+                                    parity.near_zero_frames(x.cpu().numpy(), 1024, 256, 0.97))
+del mag, aux, pmag, paux
+def ms(fn, iters=10):
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+kw = dict(pre_emph=0.97, with_features=True, sample_rate=44100)
+k1 = [ms(lambda: H.stft_magnitude_hopper(x, 1024, 256, pre_emph=0.97)) for _ in range(2)]
+k10 = [ms(lambda: H.stft_magnitude_hopper(x, 1024, 256, **kw)) for _ in range(2)]
+print("K1 %.3f ms, K10 %.3f ms; " % (sum(k1) / 2, sum(k10) / 2)
+      + ", ".join("%s %s registers, %s B spilled" % ("K10" if f == "1" else "K1", r, sp)
+                  for f, sp, r in found)
+      + "; K1 parity " + ("ok" if not failures else "FAIL (" + failures[0] + ")"))
+"""
+
+
+def ablate_stft(names, card: str) -> int:
+    """Time K1 and K10 from each named STFT_ABLATIONS variant of stft.cu."""
+    print(f"card: {card}")
+    for name in names or list(STFT_ABLATIONS):
+        with tempfile.TemporaryDirectory(prefix=f"stft_{name}_") as tmp:
+            pkg = Path(tmp) / "sonido_sonar_tpu_torch"
+            shutil.copytree(ROOT / "sonido_sonar_tpu_torch", pkg,
+                            ignore=shutil.ignore_patterns("_build", "__pycache__"))
+            src = pkg / "csrc" / "stft.cu"
+            text = src.read_text()
+            for pattern, repl in STFT_ABLATIONS[name]:
+                text, n = re.subn(pattern, repl, text)
+                if n != 1:
+                    raise SystemExit(f"profile_torch: {name}: {pattern!r} matched {n} times")
+            src.write_text(text)
+            res = subprocess.run([sys.executable, "-c", _ABLATION_RUN], cwd=tmp,
+                                 env={**os.environ, "PYTHONPATH": tmp},
+                                 capture_output=True, text=True, timeout=600)
+            out = res.stdout.strip() if res.returncode == 0 else "failed:\n" + res.stderr[-2000:]
+            print(f"{name}: {out}", flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--seconds", type=int, default=30)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--ablate-stft", nargs="*", metavar="NAME", choices=list(STFT_ABLATIONS),
+                    help="time K1/K10 from edited copies of csrc/stft.cu (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: needs a CUDA device")
@@ -46,6 +131,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+    if args.ablate_stft is not None:
+        return ablate_stft(args.ablate_stft, card)
     sr = 44100
     x = synth_pcm(args.batch, args.seconds * sr, 0, sr, "cuda")
     batched_fingerprint_features(x)
