@@ -11,11 +11,15 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
   1. the card's name and power limit (nvidia-smi)
   2. require CUDA; TF32 off
   3. build the kernels; the compiler's registers and spills, and K1's and
-     K10's shared memory per block and resident blocks per SM at 1024/256
+     K10's shared memory per block and resident blocks per SM at 1024/256,
+     K2's at 1024/512 and 1024/256 (the period amplitude's), K3's at
+     1024/512
   4. K1 (STFT + aux) against its plain version, B=4 x 5 s and B=128 x 30 s
-  5. K2 (YIN) against its plain version, same inputs; then both at other
-     windows, hops and pre-emphasis values, K1 alone at W = 64 and 128 and
-     at an odd hop, and both on a 1-D row
+  5. K2 (YIN) against its plain version, same inputs; then K1, K2 and K3
+     (YIN difference rows) at the other windows, hops and pre-emphasis
+     values (512/128, 2048/512, 256/100) and at an odd hop (1024/255:
+     frames off 8-byte alignment), K1 alone at W = 64 and 128, and K1 and
+     K2 on a 1-D row
   6. the main path, batched_fingerprint_features, at B=128 x 30 s,
      44.1 kHz, window 1024, hop 256: shapes, finite values, kernel launch
      counts, step time and audio-hours per wall-hour
@@ -89,8 +93,8 @@ the card:
      [128, 5164, 513] with the 6 contrast edges, driven once as its
      public op, then against its plain version (the contrast sorts), and
      the tie and zero case exactly
- 26. K3 (YIN difference rows) at B=128 x 30 s, 1024/512, driven once as
-     its public op, then against its plain version
+ 26. K3 at B=128 x 30 s, 1024/512, driven once as its public op, then
+     against its plain version
  27. K10, K9 and K3 against their plain versions, timed, and K1 against
      torch.stft
 
@@ -181,6 +185,27 @@ def in_turns(kern, plain, iters: int, warm: bool = True) -> tuple:
     q2 = cuda_ms(kern, iters)
     p2 = cuda_ms(plain, max(iters // 3, 1))
     return (q1 + q2) / 2, (p1 + p2) / 2
+
+
+def hold_k3(x: torch.Tensor, w: int, hop: int) -> tuple:
+    """K3 against its plain version on the same input: (max |d - plain|,
+    d's shape); raises past utils/parity.YIN_DIFF_ATOL_SCALE of the
+    largest |d|."""
+    from sonido_sonar_tpu_torch.ops import hopper_yin
+    from sonido_sonar_tpu_torch.utils import parity
+
+    d = hopper_yin.yin_difference_hopper(x, w, hop)
+    pd = hopper_yin.yin_difference_plain(x, w, hop)
+    torch.cuda.synchronize()
+    if d.shape != pd.shape:
+        raise AssertionError(f"K3: shape {tuple(d.shape)}, plain {tuple(pd.shape)}")
+    scale = float(pd.abs().max())
+    err = float((d - pd).abs().max())
+    log(f"[K3 vs plain, {tuple(x.shape)}, {w}/{hop}] max |d - plain| {err:.4g} = "
+        f"{err / scale:.3g} of the largest |d| (limit {parity.YIN_DIFF_ATOL_SCALE})")
+    if not err <= parity.YIN_DIFF_ATOL_SCALE * scale:
+        raise AssertionError(f"K3 disagrees with its plain version at {w}/{hop}")
+    return err, tuple(d.shape)
 
 
 def card_line() -> str:
@@ -734,23 +759,12 @@ def run_features(card: str, dev: torch.device, full: torch.Tensor, small: torch.
 
     # phase 26: K3 at B=128 x 30 s, 1024/512, its op driven once, then held
     k3.launches = 0
-    d = k3(full, PITCH_WINDOW, PITCH_HOP)
-    torch.cuda.synchronize()
+    res["K3_err"], shape3 = hold_k3(full, PITCH_WINDOW, PITCH_HOP)
     res["K3_launches"] = k3.launches
-    pd = k3_plain(full, PITCH_WINDOW, PITCH_HOP)
-    if d.shape != pd.shape:
-        raise AssertionError(f"K3: shape {tuple(d.shape)}, plain {tuple(pd.shape)}")
-    scale = float(pd.abs().max())
-    res["K3_err"] = float((d - pd).abs().max())
-    log(f"[K3 vs plain, {tuple(full.shape)}, 1024/512] max |d - plain| {res['K3_err']:.4g} "
-        f"= {res['K3_err'] / scale:.3g} of the largest |d| (limit {parity.YIN_DIFF_ATOL_SCALE})")
-    if not res["K3_err"] <= parity.YIN_DIFF_ATOL_SCALE * scale:
-        raise AssertionError("K3 disagrees with its plain version")
-    del pd
-    frames3 = d.shape[0] * d.shape[1]
-    res["K3_bound"] = bound(full.numel() * 4 + d.numel() * 4, frames3 * yin_ops(PITCH_WINDOW))
-    res["K3_shape"] = tuple(d.shape)
-    del d
+    frames3 = shape3[0] * shape3[1]
+    res["K3_bound"] = bound(full.numel() * 4 + frames3 * shape3[2] * 4,
+                            frames3 * yin_ops(PITCH_WINDOW))
+    res["K3_shape"] = shape3
     torch.cuda.empty_cache()
     res["K3_times"] = in_turns(lambda: k3(full, PITCH_WINDOW, PITCH_HOP),
                                lambda: k3_plain(full, PITCH_WINDOW, PITCH_HOP), 10)
@@ -819,6 +833,14 @@ def main() -> int:
             raise AssertionError(f"{name} occupancy query failed: {lib.sonido_error_string(code)}")
         log(f"{name} at {WINDOW}/{HOP}: {smem.value} B of shared memory per block, "
             f"{blocks.value} blocks per SM [{card}]")
+    for name, w, hop, rows in (("K2", PITCH_WINDOW, PITCH_HOP, 0), ("K2 amp", 1024, 256, 0),
+                               ("K3", PITCH_WINDOW, PITCH_HOP, 1)):
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        code = lib.sonido_yin_occupancy(w, hop, rows, ctypes.byref(smem), ctypes.byref(blocks))
+        if code != 0:
+            raise AssertionError(f"{name} occupancy query failed: {lib.sonido_error_string(code)}")
+        log(f"{name} at {w}/{hop}: {smem.value} B of shared memory per block, "
+            f"{blocks.value} blocks per SM [{card}]")
 
     k1 = hopper_stft.stft_magnitude_hopper
     k1_plain = hopper_stft.stft_magnitude_plain
@@ -857,13 +879,16 @@ def main() -> int:
         errs["K1", name] = hold_k1(x, WINDOW, HOP, PRE_EMPH)
         errs["K2", name] = hold_k2(x, PITCH_WINDOW, PITCH_HOP, PRE_EMPH)
         torch.cuda.empty_cache()
-    # the kernels' other geometries and options, and a 1-D row
+    # the kernels' other geometries and options, an odd hop (frames off
+    # 8-byte alignment), and a 1-D row
     odd = parity.synth_pcm(3, SR + 777, SEED + 3, SR, dev)
-    for w, hop, pre in ((512, 128, 0.0), (2048, 512, 0.95), (256, 100, 0.97)):
+    for w, hop, pre in ((512, 128, 0.0), (2048, 512, 0.95), (256, 100, 0.97),
+                        (1024, 255, PRE_EMPH)):
         hold_k1(odd, w, hop, pre)
         hold_k2(odd, w, hop, pre)
-    # K1's smallest FFT instances, and an odd hop (frames off 8-byte alignment)
-    for w, hop, pre in ((64, 32, PRE_EMPH), (128, 64, 0.0), (1024, 255, PRE_EMPH)):
+        hold_k3(odd, w, hop)
+    # K1's smallest FFT instances
+    for w, hop, pre in ((64, 32, PRE_EMPH), (128, 64, 0.0)):
         hold_k1(odd, w, hop, pre)
     mag1, aux1 = k1(odd[1], WINDOW, HOP, pre_emph=PRE_EMPH)
     mag3, aux3 = k1(odd, WINDOW, HOP, pre_emph=PRE_EMPH)

@@ -10,8 +10,9 @@ with a plain C interface, loaded with ctypes:
 
 The build runs at first use, from this package's sources only, into
 `_build/` beside this file (git-ignored). The library's name carries a
-hash of the sources and flags, so an edited source is rebuilt and a
-stale library is never loaded. Nothing falls back: a missing nvcc or a
+hash of the sources, the headers they include (`csrc/*.cuh`) and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded. Nothing falls back: a missing nvcc or a
 failed build raises `KernelError`.
 
 Each C entry point launches on the stream it is given and returns
@@ -55,11 +56,13 @@ _SIGNATURES = {
     "sonido_stft_features": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # window, hop, features, smem bytes (out), blocks per SM (out)
     "sonido_stft_occupancy": (_I, _I, _I, _P, _P),
-    # sig, pitch, conf, amp (nullable), batch, n, frames, window, hop,
-    # pre_emph, sample_rate, min_freq, max_freq, threshold, stream
-    "sonido_yin_pitch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
-    # sig, d, batch, n, frames, window, hop, stream
-    "sonido_yin_difference": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # sig, twiddle, pitch, conf, amp (nullable), batch, n, frames, window,
+    # hop, pre_emph, sample_rate, min_freq, max_freq, threshold, stream
+    "sonido_yin_pitch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
+    # sig, twiddle, d, batch, n, frames, window, hop, stream
+    "sonido_yin_difference": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # window, hop, rows (K3), smem bytes (out), blocks per SM (out)
+    "sonido_yin_occupancy": (_I, _I, _I, _P, _P),
     # mag, bands, peak, valley, frames, bins, bands, stream
     "sonido_contrast_band_means": (_P, _P, _P, _P, _L, _I, _I, _P),
     # cand, kept, rows, frames, min_frames, stream
@@ -96,8 +99,11 @@ def find_nvcc() -> str:
 
 
 def source_hash() -> str:
+    """16 hex digits over the flags, every source and every header."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    headers = sorted(p.relative_to(_PKG).as_posix() for p in (_PKG / "csrc").glob("*.cuh"))
+    for src in (*SOURCES, *headers):
+        h.update(src.encode())
         h.update((_PKG / src).read_bytes())
     return h.hexdigest()[:16]
 

@@ -103,25 +103,24 @@ def twiddle_table(window_size: int) -> np.ndarray:
     return np.stack([np.cos(a), np.sin(a)], axis=1).astype(np.float32)
 
 
-def fft_model(frames: np.ndarray) -> np.ndarray:
-    """numpy model of K1's per-frame transform, pass by pass with the
-    kernel's index maps: [..., W] windowed real frames -> [..., W/2 + 1]
-    complex64 spectrum, as np.fft.rfft gives it.
+def complex_twiddles(window_size: int) -> np.ndarray:
+    """`twiddle_table(window_size)` as complex64, the values the kernels read."""
+    tw = twiddle_table(window_size)
+    return (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
+
+
+def fft_passes_model(z: np.ndarray, tw: np.ndarray) -> np.ndarray:
+    """numpy model of the warp FFT core (csrc/warp_fft.cuh), pass by pass
+    with the kernels' index maps: [..., half] complex64 points in natural
+    order -> the warp buffer after the last pass, point k of the transform
+    at `swizzle(k)`. `tw` is `complex_twiddles(2 * half)`.
 
     Butterfly j of a pass is lane j % 32's slot j // 32; it reads points
-    j + r * half/R of the warp buffer, multiplies point r >= 1 by table
-    entry (r - 1) Ns + (j mod Ns) of its pass, and writes the R-point DFT
-    to (j // Ns) Ns R + (j mod Ns) + r Ns; every buffer index goes through
-    `swizzle`. Pass 0 reads the packed frame z[m] = x[2m] + i x[2m+1]. The
-    split gives bin k = lane + 32 i from Z[k] and Z[half - k] (mod half)
-    and table entry k, halved at the end. Arithmetic in complex64 from the
-    float32 table."""
-    w = frames.shape[-1]
-    half = w // 2
-    tw = twiddle_table(w)
-    tw = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
-    x = np.asarray(frames, np.float32)
-    z = (x[..., 0::2] + 1j * x[..., 1::2]).astype(np.complex64)
+    j + r * half/R of the warp buffer (pass 0: of `z`), multiplies point
+    r >= 1 by table entry (r - 1) Ns + (j mod Ns) of its pass, and writes
+    the R-point DFT to (j // Ns) Ns R + (j mod Ns) + r Ns; every buffer
+    index goes through `swizzle`. Arithmetic in complex64."""
+    half = z.shape[-1]
     buf = np.zeros_like(z)
     offset = half + 1
     for p, (radix, span) in enumerate(fft_passes(half)):
@@ -138,6 +137,20 @@ def fft_model(frames: np.ndarray) -> np.ndarray:
         dst = ((j // span) * span * radix + j % span)[:, None] + r[None, :] * span
         buf = np.empty_like(buf)
         buf[..., swizzle(dst)] = v
+    return buf
+
+
+def fft_model(frames: np.ndarray) -> np.ndarray:
+    """numpy model of K1's per-frame transform: [..., W] windowed real
+    frames -> [..., W/2 + 1] complex64 spectrum, as np.fft.rfft gives it.
+    The packed frame z[m] = x[2m] + i x[2m+1] through `fft_passes_model`;
+    the split gives bin k = lane + 32 i from Z[k] and Z[half - k] (mod
+    half) and table entry k, halved at the end."""
+    w = frames.shape[-1]
+    half = w // 2
+    tw = complex_twiddles(w)
+    x = np.asarray(frames, np.float32)
+    buf = fft_passes_model((x[..., 0::2] + 1j * x[..., 1::2]).astype(np.complex64), tw)
     k = np.arange(half + 1)
     zk = buf[..., swizzle(k & (half - 1))]
     zc = np.conj(buf[..., swizzle((half - k) & (half - 1))])

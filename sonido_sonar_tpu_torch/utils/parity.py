@@ -96,9 +96,10 @@ FEAT_MEL_ACROSS_DFTS = (1e-4, "scale:1e-6")
 # :119-141): its chroma and bandwidth lanes at its own bounds above.
 FEAT_EPILOGUE_TOLERANCES = {"chroma": FEAT_SAME_MAGNITUDES["chroma"],
                             "spectral_bandwidth": FEAT_SAME_MAGNITUDES["spectral_bandwidth"]}
-# K3, the YIN difference rows: the kernel's direct fp32 sums against the
-# E1 + S - 2r DFT formulation, 2e-4 of the largest |d| (the JAX kernel
-# tests' bound, tests/test_pallas_yin.py:35-45).
+# K3, the YIN difference rows: E1 + S - 2r with r through the kernel's
+# fp32 real FFTs against the same formulation through DFT matmuls, 2e-4
+# of the largest |d| (the JAX kernel tests' bound,
+# tests/test_pallas_yin.py:35-45).
 YIN_DIFF_ATOL_SCALE = 2e-4
 # K9, the contrast band means: exact k-th values, so only the fp32 sums
 # of the selected powers differ from a sort's mean (~1e-7 relative);

@@ -226,6 +226,77 @@ def test_k1_fft_buffer_accesses_are_free_of_bank_conflicts(w):
                     assert _bank_ways(np.where(j < nb, hopper_stft.swizzle(idx), -1)) == 1, (p, r)
 
 
+K2_WINDOWS = list(hopper_yin.KERNEL_WINDOWS)
+
+
+def _direct_difference(frames):
+    """d(tau) = sum_{j<H} (x[j] - x[j+tau])^2 in float64."""
+    h = frames.shape[-1] // 2
+    f = frames.astype(np.float64)
+    return np.stack([((f[..., :h] - f[..., t:t + h]) ** 2).sum(-1) for t in range(h)], axis=-1)
+
+
+@pytest.mark.parametrize("w,zero_first_half", [(w, False) for w in K2_WINDOWS] + [(1024, True)])
+def test_k2_difference_model_matches_direct_sum(w, zero_first_half):
+    """The numpy model of K2/K3's difference function (their two packed
+    forward transforms, the bin-pair product and inverse split, the
+    inverse passes, the lane-chunked prefix sums; table reads and swizzled
+    indices as the kernel makes them) against a float64 direct sum and
+    against the plain version ops/pitch._yin_difference, each within 2e-4
+    of the largest |d| (utils/parity.YIN_DIFF_ATOL_SCALE). With the first
+    half zeroed, r = 0 and d = S."""
+    x = tfilters.pre_emphasis(torch.from_numpy(_pcm(2, 0.25, 40 + w)), PRE)
+    frames = tframing.frame_signal(x, w, w // 2).numpy().reshape(-1, w)[:6].copy()
+    if zero_first_half:
+        frames[:, : w // 2] = 0.0
+    got = hopper_yin.difference_model(frames)
+    ref = _direct_difference(frames)
+    plain = tpitch._yin_difference(torch.from_numpy(frames)).numpy()
+    assert got.shape == ref.shape == plain.shape and got.dtype == np.float32
+    scale = np.abs(ref).max()
+    assert np.abs(got - ref).max() <= parity.YIN_DIFF_ATOL_SCALE * scale
+    assert np.abs(got - plain).max() <= parity.YIN_DIFF_ATOL_SCALE * scale
+    if zero_first_half:
+        assert (got >= -1e-6 * scale).all()
+
+
+def _bank_ways32(idx):
+    """Worst bank conflict of one warp's 32-bit shared-memory access (lane
+    -> float index, -1 idle): 32 banks."""
+    idx = np.unique(idx[idx >= 0])
+    return int(np.bincount(idx % 32).max()) if idx.size else 1
+
+
+@pytest.mark.parametrize("w", K2_WINDOWS)
+def test_k2_buffer_accesses_outside_the_fft_passes(w):
+    """K2/K3's shared-memory accesses that K1's passes do not make: the
+    squares' lane-strided stores and the d rows' lane-strided loads, and
+    the lane-contiguous chunk loads and stores (H/32 floats per lane,
+    twice for the squares) through the scratch swizzle, one wavefront
+    each; the bin-pair step's loads of points k (one wavefront) and N - k
+    (two at most: the half-warp's 16 points straddle an aligned 16-point
+    block, as K1's split reads do); the inverse's lane-contiguous 64-bit
+    loads of W/64 points (one wavefront at W = 1024, two at most
+    elsewhere)."""
+    n = w // 2
+    c = n // 32
+    lanes = np.arange(32)
+    sw = hopper_yin.scratch_swizzle
+    assert sorted(sw(np.arange(w))) == list(range(w))
+    for i in range(w // 32):
+        assert _bank_ways32(sw(32 * i + lanes)) == 1
+    for t in range(c):
+        for base in (0, n):
+            assert _bank_ways32(sw(base + c * lanes + t)) == 1
+    for i in range(-(-(n // 2 + 1) // 32)):
+        k = 32 * i + lanes
+        live = k <= n // 2
+        assert _bank_ways(np.where(live, hopper_stft.swizzle(k), -1)) == 1
+        assert _bank_ways(np.where(live, hopper_stft.swizzle((n - k) & (n - 1)), -1)) <= 2
+    ways = [_bank_ways(hopper_stft.swizzle((c // 2) * lanes + t)) for t in range(c // 2)]
+    assert max(ways) == 1 if w == 1024 else max(ways) <= 2
+
+
 @pytest.mark.parametrize("hop,rows", [(512, 2), (256, 1)])
 def test_k3_plain_matches_pallas_interpret(hop, rows):
     """The difference rows at 1024/512 and 1024/256 (a 1-D row): atol 2e-4
@@ -299,11 +370,13 @@ def test_build_command_targets_hopper(tmp_path, monkeypatch):
     import ctypes
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     sigs = _build._SIGNATURES
-    assert sigs["sonido_yin_pitch"][:4] == (P, P, P, P)  # sig, pitch, conf, amp (nullable)
-    assert sigs["sonido_yin_pitch"][-1] == P and len(sigs["sonido_yin_pitch"]) == 15
+    # sig, twiddle, pitch, conf, amp (nullable)
+    assert sigs["sonido_yin_pitch"][:5] == (P, P, P, P, P)
+    assert sigs["sonido_yin_pitch"][-1] == P and len(sigs["sonido_yin_pitch"]) == 16
     assert sigs["sonido_stft_features"] == (P,) * 10 + (I,) * 5 + (F, P)
     assert sigs["sonido_stft_occupancy"] == (I, I, I, P, P)
-    assert sigs["sonido_yin_difference"] == (P, P, I, I, I, I, I, P)
+    assert sigs["sonido_yin_difference"] == (P, P, P, I, I, I, I, I, P)
+    assert sigs["sonido_yin_occupancy"] == (I, I, I, P, P)
     assert sigs["sonido_contrast_band_means"] == (P, P, P, P, L, I, I, P)
     assert sigs["sonido_thin_onsets"] == (P, P, I, I, I, P)
     assert sigs["sonido_dtw_fill_banded"] == (P, P, P, I, I, I, I, I, P)
@@ -321,6 +394,25 @@ def test_build_command_targets_hopper(tmp_path, monkeypatch):
     nvcc.write_text("")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     assert _build.find_nvcc() == str(nvcc)
+
+
+def test_source_hash_follows_the_headers(tmp_path, monkeypatch):
+    """The library's hash covers csrc/*.cuh, which the sources include: an
+    edited header gives another hash (so a stale library is never
+    loaded), and so does a new header."""
+    import shutil
+
+    shutil.copytree(_build._PKG / "csrc", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "_PKG", tmp_path)
+    before = _build.source_hash()
+    assert before == _build.source_hash()
+    header = tmp_path / "csrc" / "warp_fft.cuh"
+    assert '#include "warp_fft.cuh"' in (tmp_path / "csrc" / "yin.cu").read_text()
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = _build.source_hash()
+    assert edited != before
+    (tmp_path / "csrc" / "extra.cuh").write_text("// new\n")
+    assert _build.source_hash() not in (before, edited)
 
 
 def test_failed_build_leaves_no_library(tmp_path, monkeypatch):

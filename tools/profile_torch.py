@@ -20,6 +20,12 @@ temporary directory and runs in its own process. A variant that drops a
 part gives wrong outputs (its parity line says so) and measures only
 that part's share of the kernel's time; the others show what a design
 choice is worth.
+
+    python3 tools/profile_torch.py --ablate-yin [NAME ...]
+
+does the same for csrc/yin.cu (YIN_ABLATIONS): K2 at 1024/512 held to its
+plain version, then K2, K2 with the period amplitude (1024/256) and K3
+(1024/512) timed at B=128 x 30 s.
 """
 
 from __future__ import annotations
@@ -51,6 +57,58 @@ STFT_ABLATIONS = {
     "drop_passes_after_0": [(r"\n    fft_passes_from<kLog2N, 1>\(buf, twiddle, lane\);", "")],
     "drop_rolloff_search": [(r"__ballot_sync\(kFull, in_chunk && base \+ v >= thr\)", "0u")],
 }
+
+# name -> regex edits of csrc/yin.cu (each must match exactly once)
+YIN_ABLATIONS = {
+    "shipped": [],
+    "no_register_bound": [(r"__launch_bounds__\(kThreads, min_blocks\(kLog2N\)\)",
+                           "__launch_bounds__(kThreads)")],
+    "sig_cap_8192": [(r"kSigCap = 5120;", "kSigCap = 8192;")],
+    "drop_forward_passes": [(r"\n    fft_passes_from<kLog2N, 1>\(buf_a, twiddle, lane\);", ""),
+                            (r"\n    fft_passes_from<kLog2N, 1>\(buf_b, twiddle, lane\);", "")],
+    "drop_cross_spectrum": [(r"\n    cross_spectrum<N>\(buf_a, buf_b, twiddle, lane\);", "")],
+    "drop_inverse": [(r"\n    fft_passes_from<kLog2N, 0>\(buf_b, twiddle, lane\);", "")],
+    "tile_4_5_blocks": [(r"kTileMax = 16;", "kTileMax = 4;"),
+                        (r"log2n == 9 \? 4 : 2", "log2n == 9 ? 5 : 2")],
+    "fast_cmndf_division": [(r"d\[t\] \* \(float\)u / fmaxf\(base \+ loc\[t\], kEps\)",
+                             "__fdividef(d[t] * (float)u, fmaxf(base + loc[t], kEps))")],
+    "drop_pre_emphasis": [(r"if \(pre_emph != 0.f\) \{", "if (false) {")],
+    "drop_candidate_search": [(r"first = __reduce_min_sync\(kFull, first\);", "first = H;")],
+}
+
+_YIN_ABLATION_RUN = r"""
+import re, torch
+from sonido_sonar_tpu_torch import _build
+from sonido_sonar_tpu_torch.ops import hopper_yin as Y
+from sonido_sonar_tpu_torch.ops.filters import pre_emphasis_for_content
+from sonido_sonar_tpu_torch.utils import parity
+log = _build.build()[1].compiler_log
+found = re.findall(r"yin_kernelILi9ELb([01])E[^']*' for.*?(\d+) bytes spill stores.*?"
+                   r"Used (\d+) registers", log, re.S)
+x = parity.synth_pcm(128, 30 * 44100, 1, 44100, "cuda")
+sp = pre_emphasis_for_content(x, "speech").contiguous()
+args = (1024, 512, 44100, 80.0, 1000.0, 0.15, 0.97)
+p, c, _ = Y.yin_pitch_hopper(x, *args)
+pp, pc, _ = Y.yin_pitch_plain(x, *args)
+_, failures = parity.check_pitch(p.cpu().numpy(), c.cpu().numpy(), pp.cpu().numpy(), pc.cpu().numpy())
+def ms(fn, iters=10):
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+k2 = [ms(lambda: Y.yin_pitch_hopper(x, *args)) for _ in range(2)]
+amp = [ms(lambda: Y.yin_pitch_hopper(sp, 1024, 256, 44100, 50.0, 500.0, 0.15, 0.0, True))
+       for _ in range(2)]
+k3 = [ms(lambda: Y.yin_difference_hopper(x, 1024, 512)) for _ in range(2)]
+print("K2 %.3f ms, K2 amp %.3f ms, K3 %.3f ms; " % (sum(k2) / 2, sum(amp) / 2, sum(k3) / 2)
+      + ", ".join("%s %s registers, %s B spilled" % ("K3" if f == "1" else "K2", r, sp_)
+                  for f, sp_, r in found)
+      + "; K2 parity " + ("ok" if not failures else "FAIL (" + failures[0] + ")"))
+"""
 
 _ABLATION_RUN = r"""
 import re, torch
@@ -86,22 +144,23 @@ print("K1 %.3f ms, K10 %.3f ms; " % (sum(k1) / 2, sum(k10) / 2)
 """
 
 
-def ablate_stft(names, card: str) -> int:
-    """Time K1 and K10 from each named STFT_ABLATIONS variant of stft.cu."""
+def ablate(source: str, table: dict, run: str, names, card: str) -> int:
+    """Build the package from each named variant of csrc/<source> (its
+    regex edits in `table`) and print what `run` measures there."""
     print(f"card: {card}")
-    for name in names or list(STFT_ABLATIONS):
-        with tempfile.TemporaryDirectory(prefix=f"stft_{name}_") as tmp:
+    for name in names or list(table):
+        with tempfile.TemporaryDirectory(prefix=f"{Path(source).stem}_{name}_") as tmp:
             pkg = Path(tmp) / "sonido_sonar_tpu_torch"
             shutil.copytree(ROOT / "sonido_sonar_tpu_torch", pkg,
                             ignore=shutil.ignore_patterns("_build", "__pycache__"))
-            src = pkg / "csrc" / "stft.cu"
+            src = pkg / "csrc" / source
             text = src.read_text()
-            for pattern, repl in STFT_ABLATIONS[name]:
+            for pattern, repl in table[name]:
                 text, n = re.subn(pattern, repl, text)
                 if n != 1:
                     raise SystemExit(f"profile_torch: {name}: {pattern!r} matched {n} times")
             src.write_text(text)
-            res = subprocess.run([sys.executable, "-c", _ABLATION_RUN], cwd=tmp,
+            res = subprocess.run([sys.executable, "-c", run], cwd=tmp,
                                  env={**os.environ, "PYTHONPATH": tmp},
                                  capture_output=True, text=True, timeout=600)
             out = res.stdout.strip() if res.returncode == 0 else "failed:\n" + res.stderr[-2000:]
@@ -116,6 +175,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--ablate-stft", nargs="*", metavar="NAME", choices=list(STFT_ABLATIONS),
                     help="time K1/K10 from edited copies of csrc/stft.cu (default: all)")
+    ap.add_argument("--ablate-yin", nargs="*", metavar="NAME", choices=list(YIN_ABLATIONS),
+                    help="time K2/K3 from edited copies of csrc/yin.cu (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: needs a CUDA device")
@@ -132,7 +193,9 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     if args.ablate_stft is not None:
-        return ablate_stft(args.ablate_stft, card)
+        return ablate("stft.cu", STFT_ABLATIONS, _ABLATION_RUN, args.ablate_stft, card)
+    if args.ablate_yin is not None:
+        return ablate("yin.cu", YIN_ABLATIONS, _YIN_ABLATION_RUN, args.ablate_yin, card)
     sr = 44100
     x = synth_pcm(args.batch, args.seconds * sr, 0, sr, "cuda")
     batched_fingerprint_features(x)
