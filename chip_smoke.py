@@ -50,13 +50,17 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
  15. K2 with amplitude and K4 against their plain versions, timed
  16. one torch.profiler step each of the generator and the music paths:
      the device's busy share and its top kernels
- 17. the banded DTW fill kernel (K5/K6/K7's counterpart) against its plain
-     version at the three TPU fills' geometries: [8, 2048, 12] band 64;
-     [1, 10335, 12] band 5167 (60 s chroma); [2, 10332, 1] band 5167 (fleet
-     energy series); and [2, 3000 x 2900, 1] band 20671 (a 60 s budget at
-     hop 128: rows too wide for shared memory, kept in the cost band);
-     after each, the backtrack kernel (K8's) against the plain backtrack on
-     the kernel's own band, exactly
+ 17. the banded DTW fill (K5/K6/K7's counterpart: the distance pre-pass,
+     then the row recurrence) against its plain version at the three TPU
+     fills' geometries: [8, 2048, 12] band 64; [1, 10335, 12] band 5167
+     (60 s chroma); [2, 10332, 1] band 5167 (fleet energy series); and
+     [2, 3000 x 2900, 1] band 20671 (a 60 s budget at hop 128: rows too
+     wide for shared memory, kept in the cost band); after each, the
+     backtrack kernel (K8's) against the plain backtrack on the kernel's
+     own band, exactly; the pre-pass alone against its plain version at
+     K7's and the fleet's geometries (utils/parity.check_local_distances);
+     the pre-pass, the recurrence and the whole call timed apart at the
+     wide band, with us per row
  18. the stream-alignment path at full width: FleetMonitor (44.1 kHz,
      1024/256), 64 streams x 60 s windows, 30 s budget, measure_batch 32,
      refine=True; 48 streams carry the source delayed 0.1-3 s x 0.9, 16
@@ -69,7 +73,9 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
  20. a 4-stream fleet (12 s, 3 s budget) and align_audio_files on the card
      against the CPU: offsets and methods equal, scores within 1e-4
  21. fill and backtrack against their plain versions, timed at the fleet
-     geometry (B = 2), and the kernels at B = 32, the fleet's sub-batch,
+     geometry (B = 2); the fill's pre-pass, recurrence and whole call timed
+     apart at B = 2 and B = 32, the fleet's sub-batch, with us per row and
+     the bytes bounds; the kernels at B = 32,
      with pairs 0, 24 (unrelated) and 31 of it held to the plain fill and
      the plain backtrack (their offsets in the band pass 2^31 elements
      from pair 21 on); the hybrid's host reads
@@ -379,6 +385,8 @@ def run_alignment(card: str, dev: torch.device) -> dict:
     from sonido_sonar_tpu_torch.utils import parity
 
     fill, fill_plain = hopper_dtw.fill_banded_hopper, hopper_dtw.fill_banded_plain
+    dist, dist_plain = hopper_dtw.local_distances_hopper, hopper_dtw.local_distances_plain
+    rows_k = hopper_dtw.fill_rows_hopper
     walk, walk_plain = hopper_backtrack.backtrack_banded_hopper, hopper_backtrack.backtrack_banded_plain
     rng = np.random.default_rng(SEED + 10)
     n_win = ALIGN_SECONDS * SR
@@ -401,6 +409,15 @@ def run_alignment(card: str, dev: torch.device) -> dict:
         log(f"[DTW {what}] path lengths {got[3].tolist()}")
         return e
 
+    def hold_dist(q, r, band, what):
+        """The fill's distance pre-pass against its plain version."""
+        n, m = q.shape[1], r.shape[1]
+        got = dist(q, r, band, n, m)
+        want = dist_plain(q, r, band, n, m)
+        torch.cuda.synchronize()
+        return require(parity.check_local_distances(np32(got), np32(want), np32(q), np32(r)),
+                       f"DTW distance pre-pass vs plain, {what}")
+
     def rand(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
 
@@ -410,6 +427,8 @@ def run_alignment(card: str, dev: torch.device) -> dict:
     q7 = rand(1, n_chroma, 12)
     errs["K7"] = hold_dtw(q7, torch.roll(q7, 7, 1).contiguous(), band,
                           f"K7 [1, {n_chroma}, 12] band {band}")
+    dist_errs = {"K7": hold_dist(q7, torch.roll(q7, 7, 1).contiguous(), band,
+                                 f"K7 [1, {n_chroma}, 12] band {band}")}
     lags = rng.integers(int(0.1 * SR), 3 * SR, FLEET_STREAMS)
     src, cdn = parity.alignment_streams(FLEET_STREAMS, ALIGN_SECONDS, SR, lags, SEED + 11,
                                         unrelated=UNRELATED, device=dev)
@@ -419,13 +438,14 @@ def run_alignment(card: str, dev: torch.device) -> dict:
     pairs = [0, UNRELATED[0]]                         # one related pair, one unrelated
     errs["K5"] = hold_dtw(e_src[pairs].contiguous(), e_cdn[pairs].contiguous(), band,
                           f"K5 energies [2, {n_e}, 1] band {band}")
+    dist_errs["K5"] = hold_dist(e_src[pairs].contiguous(), e_cdn[pairs].contiguous(), band,
+                                f"K5 energies [2, {n_e}, 1] band {band}")
     # a band whose two rows do not fit in shared memory (a 60 s budget at
     # hop 128): the fill keeps its rows in the cost band itself
     wide = int(60 * SR) // 128
     qw, rw = rand(2, 3000, 1), rand(2, 2900, 1)
     errs["wide"] = hold_dtw(qw, rw, wide, f"[2, 3000 x 2900, 1] band {wide}")
-    log(f"DTW fill at [2, 3000 x 2900, 1] band {wide} (rows in global memory): "
-        f"{cuda_ms(lambda: fill(qw, rw, wide, 3000, 2900), 2):.2f} ms [{card}]")
+    split = {f"[2, 3000 x 2900, 1] band {wide}": time_fill_parts(qw, rw, wide, card)}
     del q6, q7, qw, rw
     torch.cuda.empty_cache()
 
@@ -541,13 +561,14 @@ def run_alignment(card: str, dev: torch.device) -> dict:
     steps = int(walk(cost2, band, n_e, n_e)[3].sum())
     bounds["backtrack"] = bound(steps * 24 + 2 * 4, steps * 6)
     del cost2
+    split[f"B=2, [2, {n_e}, 1] band {band}"] = time_fill_parts(qe, re_, band, card)
     q32, r32 = e_src[:FLEET_BATCH].contiguous(), e_cdn[:FLEET_BATCH].contiguous()
-    fill(q32, r32, band, n_e, n_e)
-    f32 = cuda_ms(lambda: fill(q32, r32, band, n_e, n_e), 2)
+    split[f"B={FLEET_BATCH}, [{FLEET_BATCH}, {n_e}, 1] band {band}"] = time_fill_parts(
+        q32, r32, band, card)
     cost32 = fill(q32, r32, band, n_e, n_e)
     w32 = cuda_ms(lambda: walk(cost32, band, n_e, n_e), 3)
-    log(f"DTW at B={FLEET_BATCH} (one fleet sub-batch, band {band}): fill {f32:.2f} ms, "
-        f"backtrack {w32:.2f} ms, cost band {cost32.numel() * 4 / 1e9:.2f} GB [{card}]")
+    log(f"DTW at B={FLEET_BATCH} (one fleet sub-batch, band {band}): backtrack {w32:.2f} ms, "
+        f"cost band {cost32.numel() * 4 / 1e9:.2f} GB [{card}]")
     # the sub-batch the fleet sends, checked: from pair 21 on a pair's
     # offset in the band passes 2^31 elements; pair 24 is unrelated (its
     # answer is the DTW's)
@@ -597,8 +618,47 @@ def run_alignment(card: str, dev: torch.device) -> dict:
     profile_step("fleet measure_all", lambda: fleet.measure_all(refine=True))  # phase 22
     fill_err = max(e["fill_max_abs"] for e in errs.values())
     walk_err = max(e["path_cost"] for e in errs.values())
+    log("DTW fill parts: " + json.dumps({"split": split, "prepass_vs_plain": dist_errs}))
     return {"launches": launches, "times": times, "fill_err": fill_err, "walk_err": walk_err,
             "fleet_ms": fleet_ms, "bounds": bounds}
+
+
+def time_fill_parts(q: torch.Tensor, r: torch.Tensor, band: int, card: str) -> dict:
+    """The fill's two kernels and the whole wrapper call, timed apart
+    (CUDA events, after one warm-up call each): the distance pre-pass,
+    the row recurrence (in place over the band, whose work does not
+    depend on the values it holds) and fill_banded_hopper; us per row of
+    the recurrence; each time beside its bytes bound (the pre-pass writes
+    the band, the recurrence reads and writes it again). Wrapper calls
+    made here leave the launch counts as they were."""
+    from sonido_sonar_tpu_torch.ops.stats import hopper_dtw
+
+    fns = (hopper_dtw.local_distances_hopper, hopper_dtw.fill_rows_hopper,
+           hopper_dtw.fill_banded_hopper)
+    counts = [f.launches for f in fns]
+    b, n, m = q.shape[0], q.shape[1], r.shape[1]
+    band_bytes = b * (n + 1) * (2 * band + 1) * 4
+    cost = hopper_dtw.local_distances_hopper(q, r, band, n, m)
+    out = {}
+    for name, fn, nbytes in (
+        ("prepass", lambda: hopper_dtw.local_distances_hopper(q, r, band, n, m),
+         q.numel() * 4 + r.numel() * 4 + band_bytes),
+        ("rows", lambda: hopper_dtw.fill_rows_hopper(cost, band, n, m), 2 * band_bytes),
+        ("whole", lambda: hopper_dtw.fill_banded_hopper(q, r, band, n, m),
+         q.numel() * 4 + r.numel() * 4 + band_bytes),
+    ):
+        fn()
+        out[f"{name}_ms"] = cuda_ms(fn, 2)
+        out[f"{name}_bound_ms"] = bound(nbytes, 0)[0]
+    out["rows_us_per_row"] = 1e3 * out["rows_ms"] / n
+    for f, c in zip(fns, counts):
+        f.launches = c
+    log(f"DTW fill at [{b}, {n} x {m}, {q.shape[2]}] band {band}: pre-pass "
+        f"{out['prepass_ms']:.3f} ms (bound {out['prepass_bound_ms']:.3f}), recurrence "
+        f"{out['rows_ms']:.3f} ms (bound {out['rows_bound_ms']:.3f}; "
+        f"{out['rows_us_per_row']:.3f} us per row), whole call {out['whole_ms']:.3f} ms "
+        f"(bound {out['whole_bound_ms']:.3f}) [{card}]")
+    return out
 
 
 def run_features(card: str, dev: torch.device, full: torch.Tensor, small: torch.Tensor) -> dict:

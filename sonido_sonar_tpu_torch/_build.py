@@ -69,6 +69,9 @@ _SIGNATURES = {
     "sonido_thin_onsets": (_P, _P, _I, _I, _I, _P),
     # q, r, cost, batch, n, m, d, band, stream
     "sonido_dtw_fill_banded": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "sonido_dtw_local_distances": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # cost, batch, n, m, band, stream
+    "sonido_dtw_fill_rows": (_P, _I, _I, _I, _I, _P),
     # cost, qs, rs, cs, length, batch, n, m, band, stream
     "sonido_dtw_backtrack_banded": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

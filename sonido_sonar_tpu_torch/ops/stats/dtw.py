@@ -12,7 +12,9 @@ plain versions solve it with a log-step (Hillis-Steele) scan over the
 row, rows in a Python loop. The banded fill and its backtrack,
 `_fill_banded` and `_backtrack_banded`, are the plain versions of the
 CUDA kernels in `csrc/dtw.cu` (wrappers `ops/stats/hopper_dtw.py` and
-`ops/stats/hopper_backtrack.py`); `dtw_align_banded` goes through the
+`ops/stats/hopper_backtrack.py`); the fill is the distance pre-pass
+`_banded_local_distances` followed by the row recurrence
+`_fill_banded_rows`, one kernel each. `dtw_align_banded` goes through the
 wrappers, so a CUDA tensor runs the kernels. The dense path stays plain
 PyTorch on every device, as it is XLA in JAX.
 
@@ -261,47 +263,75 @@ def optimize_step_pattern(query: torch.Tensor, reference: torch.Tensor) -> str:
 # Banded DTW with O(T * band) memory: the plain versions of the kernels
 # ---------------------------------------------------------------------
 
-def _fill_banded(query: torch.Tensor, reference: torch.Tensor, band: int, n: int, m: int
-                 ) -> torch.Tensor:
-    """Plain version of the banded fill kernel (dtw.py:332-390).
+def _banded_local_distances(query: torch.Tensor, reference: torch.Tensor, band: int, n: int,
+                            m: int) -> torch.Tensor:
+    """Plain version of the fill's distance pre-pass (JAX's
+    `pallas_dtw._banded_local_distances`, pallas_dtw.py:86, with the
+    fill's first row on top).
 
     [n, d] x [m, d] -> [n+1, w], or [B, n, d] x [B, m, d] -> [B, n+1, w],
-    w = 2 band + 1, cost_band[.., i, k] = cost[i, i - band + k] (BIG out
-    of range). Local distances by the |q|^2 + |r|^2 - 2 q.r expansion from
-    a window of the padded reference; the dense [n, m] matrices never
-    exist.
+    w = 2 band + 1: row 0 is the fill's first row (0 at k == band, BIG
+    elsewhere); row i >= 1 holds l[k] = ||q_{i-1} - r_{j-1}||, j = i -
+    band + k, by the |q|^2 + |r|^2 - 2 q.r expansion from a window of the
+    padded reference, BIG for j outside [1, m]. The dense [n, m] matrix
+    never exists.
     """
     single = query.dim() == 2
     q = (query[None] if single else query).to(torch.float32)
     r = (reference[None] if single else reference).to(torch.float32)
     b = q.shape[0]
-    dev = q.device
     w = 2 * band + 1
     pad_lo = band + 1
     pad_hi = band + 1 + max(0, n - m)
     ref_pad = torch.nn.functional.pad(r, (0, 0, pad_lo, pad_hi))
     ref_sq = torch.sum(ref_pad * ref_pad, dim=-1)
-    k_idx = torch.arange(w, device=dev)
-    out = torch.empty((b, n + 1, w), dtype=torch.float32, device=dev)
+    k_idx = torch.arange(w, device=q.device)
+    out = torch.empty((b, n + 1, w), dtype=torch.float32, device=q.device)
     out[:, 0] = torch.where(k_idx == band, 0.0, BIG)
-    big1 = torch.full((b, 1), BIG, device=dev)
     for i in range(1, n + 1):
         j_cols = i - band + k_idx
-        valid = (j_cols >= 1) & (j_cols <= m)
         q_i = q[:, i - 1]
         q_sq = torch.sum(q_i * q_i, dim=-1, keepdim=True)
         start = i - band - 1 + pad_lo
-        r_win = ref_pad[:, start: start + w]
-        cross = torch.sum(r_win * q_i[:, None, :], dim=-1)
+        cross = torch.sum(ref_pad[:, start: start + w] * q_i[:, None, :], dim=-1)
         l = torch.sqrt(torch.clamp_min(q_sq + ref_sq[:, start: start + w] - 2.0 * cross, 0.0))
-        l = torch.where(valid, l, BIG)
+        out[:, i] = torch.where((j_cols >= 1) & (j_cols <= m), l, BIG)
+    return out[0] if single else out
+
+
+def _fill_banded_rows(local: torch.Tensor, band: int, n: int, m: int) -> torch.Tensor:
+    """Plain version of the fill's row recurrence (dtw.py:343-390 after
+    the distances): over a band of local distances [.., n+1, w] as
+    `_banded_local_distances` gives it, overwrite rows 1..n in place with
+    D and return the band."""
+    single = local.dim() == 2
+    out = local[None] if single else local
+    b, w = out.shape[0], 2 * band + 1
+    k_idx = torch.arange(w, device=out.device)
+    big1 = torch.full((b, 1), BIG, device=out.device)
+    for i in range(1, n + 1):
+        j_cols = i - band + k_idx
+        l = out[:, i]
         prev = out[:, i - 1]
         up = torch.cat([prev[:, 1:], big1], dim=1)
         a = torch.clamp_max(l + torch.minimum(up, prev), BIG)
         c = torch.clamp_max(l, BIG)
         dk = torch.clamp_max(_minplus_row_scan(a, c), BIG)
-        out[:, i] = torch.where(valid, dk, BIG)
-    return out[0] if single else out
+        out[:, i] = torch.where((j_cols >= 1) & (j_cols <= m), dk, BIG)
+    return local
+
+
+def _fill_banded(query: torch.Tensor, reference: torch.Tensor, band: int, n: int, m: int
+                 ) -> torch.Tensor:
+    """Plain version of the banded fill (dtw.py:332-390), composed as the
+    kernels compose it: the distance pre-pass, then the row recurrence in
+    place.
+
+    [n, d] x [m, d] -> [n+1, w], or [B, n, d] x [B, m, d] -> [B, n+1, w],
+    w = 2 band + 1, cost_band[.., i, k] = cost[i, i - band + k] (BIG out
+    of range).
+    """
+    return _fill_banded_rows(_banded_local_distances(query, reference, band, n, m), band, n, m)
 
 
 def _backtrack_banded(cost_band: torch.Tensor, band: int, n: int, m: int):

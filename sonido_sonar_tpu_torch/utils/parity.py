@@ -523,6 +523,19 @@ def check_extracted(
 # the JAX kernel tests' (tests/test_pallas_dtw.py: rel 1e-5 of the max).
 DTW_SENTINEL = 1e37
 DTW_FILL_REL = 1e-5
+# The fill's distance pre-pass: l = sqrt(max(|q|^2 + |r|^2 - 2 q.r, 0))
+# per cell. Two float32 evaluations of the expansion (the kernel's FMA
+# loop over d, the plain version's products and sum, JAX's HIGHEST
+# dot_general) each err by at most ~(d + 2) eps (|q|^2 + |r|^2 + 2|q.r|)
+# <= 2 (d + 2) eps S in the squared distance, S = max |q|^2 + max |r|^2;
+# and |sqrt(x) - sqrt(y)| <= sqrt(|x - y|), so a cell may differ by
+# sqrt(4 (d + 2) eps S) where the expansion cancels (q ~ r). At d = 1
+# the kernel and the plain version take the same roundings in the same
+# order, so they should agree bit for bit (the count of cells that differ
+# is reported); XLA on the CPU contracts the expansion otherwise (~1e-5
+# at d = 1, measured). The sentinel masks (j outside [1, m]) must
+# coincide.
+LOCAL_DIST_EPS = float(np.finfo(np.float32).eps)
 # Backtrack on one shared band: the walk only compares cells, so the
 # path and its length are exact; the path costs are float32 differences
 # of the same cells (equal bits on one band; the bound allows another
@@ -559,6 +572,38 @@ def check_fill(got, ref) -> Report:
         failures.append(f"fill: finite cells off by {rel:.3g} of the max (limit {DTW_FILL_REL})")
     return {"fill_max_abs": max_abs, "fill_max_rel": rel,
             "fill_sentinel_mismatch": float(mismatch)}, failures
+
+
+def check_local_distances(got, ref, query, reference) -> Report:
+    """A band of local distances [.., n+1, w] (row 0 the fill's first
+    row) against a reference, for the pairs query [.., n, d] and
+    reference [.., m, d]: sentinel masks equal, finite cells within
+    sqrt(4 (d + 2) eps S) (LOCAL_DIST_EPS); also counts the cells that
+    differ at all."""
+    g = np.asarray(got, np.float64)
+    r = np.asarray(ref, np.float64)
+    if g.shape != r.shape:
+        return {}, [f"local distances: shape {g.shape} != {r.shape}"]
+    q = np.asarray(query, np.float64)
+    x = np.asarray(reference, np.float64)
+    d = q.shape[-1]
+    scale = float((q * q).sum(-1).max()) + float((x * x).sum(-1).max())
+    limit = float(np.sqrt(4 * (d + 2) * LOCAL_DIST_EPS * scale))
+    sent_g, sent_r = g >= DTW_SENTINEL, r >= DTW_SENTINEL
+    mismatch = int((sent_g != sent_r).sum())
+    finite = ~sent_r & ~sent_g
+    diff = np.abs(g - r)[finite]
+    max_abs = float(diff.max(initial=0.0))
+    failures = []
+    if mismatch:
+        failures.append(f"local distances: {mismatch} cells differ in their sentinel mask")
+    if not np.isfinite(g).all():
+        failures.append("local distances: non-finite cells")
+    if max_abs > limit:
+        failures.append(f"local distances: off by {max_abs:.3g} (limit {limit:.3g} at d = {d})")
+    return {"dist_max_abs": max_abs, "dist_limit": limit,
+            "dist_cells_differ": float((diff > 0).sum()),
+            "dist_sentinel_mismatch": float(mismatch)}, failures
 
 
 def check_backtrack(got, ref) -> Report:

@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from sonido_sonar_tpu.ops.stats import dtw as jdtw  # noqa: E402
 from sonido_sonar_tpu.ops.stats.pallas_backtrack import backtrack_banded_pallas_batch  # noqa: E402
 from sonido_sonar_tpu.ops.stats.pallas_dtw import (  # noqa: E402
+    _banded_local_distances,
     fill_banded_pallas_batch,
     fill_banded_pallas_scan_batch,
     fill_banded_pallas_scan_pairs,
@@ -28,7 +29,11 @@ from sonido_sonar_tpu.ops.stats.pallas_dtw import (  # noqa: E402
 from sonido_sonar_tpu_torch import _build  # noqa: E402
 from sonido_sonar_tpu_torch.ops.stats import dtw as tdtw  # noqa: E402
 from sonido_sonar_tpu_torch.ops.stats.hopper_backtrack import backtrack_banded_hopper  # noqa: E402
-from sonido_sonar_tpu_torch.ops.stats.hopper_dtw import fill_banded_hopper  # noqa: E402
+from sonido_sonar_tpu_torch.ops.stats.hopper_dtw import (  # noqa: E402
+    fill_banded_hopper,
+    fill_rows_hopper,
+    local_distances_hopper,
+)
 from sonido_sonar_tpu_torch.utils import parity  # noqa: E402
 
 torch.set_num_threads(1)
@@ -89,6 +94,68 @@ def test_fill_plain_matches_pallas_scan_fills(n, m, band, d, b):
     for fill in (fill_banded_pallas_scan_batch, fill_banded_pallas_scan_pairs):
         ref = np.asarray(fill(jnp.asarray(q), jnp.asarray(r), band, n, m, interpret=True))
         _require(parity.check_fill(got, ref))
+
+
+@pytest.mark.parametrize("d", [1, 12])
+@pytest.mark.parametrize("n,m,band", [
+    (40, 36, 40),     # band >= m: every row holds the whole reference
+    (120, 100, 25),   # query longer than reference
+    (100, 120, 25),   # reference longer than query
+])
+def test_local_distances_plain_matches_jax(n, m, band, d):
+    """The plain pre-pass against JAX's band distances (the input of K7's
+    scan kernel): rows 1..n equal `_banded_local_distances(...)[..., :w]`
+    within utils/parity.check_local_distances (JAX contracts with a
+    HIGHEST-precision dot_general, the port with products and a sum, so
+    the cells differ where the expansion cancels); row 0 is the fill's
+    first row."""
+    q, r = _pairs(5 * n + m + d, 2, n, m, d)
+    w = 2 * band + 1
+    got = local_distances_hopper(torch.from_numpy(q), torch.from_numpy(r), band, n, m).numpy()
+    assert got.shape == (2, n + 1, w)
+    ref = np.asarray(_banded_local_distances(jnp.asarray(q), jnp.asarray(r), band, n, m, w))
+    _require(parity.check_local_distances(got[:, 1:], ref, q, r))
+    row0 = np.where(np.arange(w) == band, 0.0, tdtw.BIG).astype(np.float32)
+    np.testing.assert_array_equal(got[:, 0], np.broadcast_to(row0, (2, w)))
+
+
+@pytest.mark.parametrize("n,m,band,d", [(60, 64, 10, 3), (50, 40, 50, 1)])
+def test_plain_fill_is_the_prepass_then_the_rows(n, m, band, d):
+    """The plain fill is the plain pre-pass followed by the plain row
+    recurrence, bit for bit, as the kernels compose it; the recurrence
+    writes its band in place and leaves row 0 as the pre-pass set it."""
+    q, r = (torch.from_numpy(a) for a in _pairs(n + m, 2, n, m, d))
+    local = local_distances_hopper(q, r, band, n, m)
+    row0 = local[:, 0].clone()
+    out = fill_rows_hopper(local, band, n, m)
+    assert out is local
+    torch.testing.assert_close(out, tdtw._fill_banded(q, r, band, n, m), rtol=0, atol=0)
+    torch.testing.assert_close(out[:, 0], row0, rtol=0, atol=0)
+    single = tdtw._fill_banded_rows(tdtw._banded_local_distances(q[0], r[0], band, n, m),
+                                    band, n, m)
+    torch.testing.assert_close(single, out[0], rtol=0, atol=0)
+
+
+def test_prepass_and_rows_wrappers_on_cpu_and_their_refusals(monkeypatch):
+    """The pre-pass and recurrence wrappers take their plain versions on a
+    CPU tensor without building or counting, and refuse what their
+    kernels cannot take with KernelError."""
+    def no_build():
+        raise AssertionError("built on the CPU")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    q, r = (torch.from_numpy(a) for a in _pairs(2, 2, 30, 33, 2))
+    before = (local_distances_hopper.launches, fill_rows_hopper.launches)
+    local = local_distances_hopper(q, r, 5, 30, 33)
+    torch.testing.assert_close(local, tdtw._banded_local_distances(q, r, 5, 30, 33),
+                               rtol=0, atol=0)
+    fill_rows_hopper(local, 5, 30, 33)
+    assert (local_distances_hopper.launches, fill_rows_hopper.launches) == before
+    meta = torch.zeros((1, 4, 2), device="meta")
+    with pytest.raises(_build.KernelError):
+        local_distances_hopper(meta, meta, 2, 4, 4)
+    with pytest.raises(_build.KernelError):
+        fill_rows_hopper(torch.zeros((1, 5, 5), device="meta"), 2, 4, 4)
 
 
 @pytest.mark.parametrize("n,m,band,d", [(120, 120, 12, 4), (97, 100, 8, 1), (70, 64, 64, 12)])
@@ -178,7 +245,8 @@ def test_wrappers_refuse_other_devices():
         backtrack_banded_hopper(torch.zeros((1, 5, 5), device="meta"), 2, 4, 4)
 
 
-@pytest.mark.parametrize("entry", ["sonido_dtw_fill_banded", "sonido_dtw_backtrack_banded"])
+@pytest.mark.parametrize("entry", ["sonido_dtw_fill_banded", "sonido_dtw_backtrack_banded",
+                                   "sonido_dtw_local_distances", "sonido_dtw_fill_rows"])
 def test_cuda_error_of_an_entry_is_a_kernel_error(monkeypatch, entry):
     """A nonzero code from a C entry (dtw.cu returns cudaErrorInvalidValue
     for an input it refuses) comes out of `_build.call` as KernelError."""

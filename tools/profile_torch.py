@@ -26,6 +26,14 @@ choice is worth.
 does the same for csrc/yin.cu (YIN_ABLATIONS): K2 at 1024/512 held to its
 plain version, then K2, K2 with the period amplitude (1024/256) and K3
 (1024/512) timed at B=128 x 30 s.
+
+    python3 tools/profile_torch.py --ablate-dtw [NAME ...]
+
+does the same for csrc/dtw.cu (DTW_ABLATIONS): the fill held to its plain
+version at [2, 1500, 1] band 700, then the distance pre-pass timed at the
+fleet's sub-batch [32, 10332, 1] band 5167 and the row recurrence at
+[2, 10332, 1] band 5167 (shared rows) and [2, 3000 x 2900, 1] band 20671
+(rows in the band), with us per row.
 """
 
 from __future__ import annotations
@@ -75,6 +83,55 @@ YIN_ABLATIONS = {
     "drop_pre_emphasis": [(r"if \(pre_emph != 0.f\) \{", "if (false) {")],
     "drop_candidate_search": [(r"first = __reduce_min_sync\(kFull, first\);", "first = H;")],
 }
+
+# name -> regex edits of csrc/dtw.cu (each must match exactly once)
+DTW_ABLATIONS = {
+    "shipped": [],
+    "threads_512": [(r"kSharedThreads = 256;", "kSharedThreads = 512;"),
+                    (r"kMaxRun = 77;", "kMaxRun = 39;")],
+    "threads_1024": [(r"kSharedThreads = 256;", "kSharedThreads = 1024;"),
+                     (r"kMaxRun = 77;", "kMaxRun = 19;")],
+    "global_threads_512": [(r"kGlobalThreads = 1024;", "kGlobalThreads = 512;")],
+    "drop_prefetch": [(r"\n      row_to_shared\(next_buf, crow \+ w, w, bar, tid, nthreads\);", ""),
+                      (r"\n    if \(i < n\) wait_phase\(bar, i & 1\);", "")],
+    "drop_copy_out": [(r"\n    shared_to_row\(crow, cur_buf, w, tid, nthreads\);", "")],
+    "drop_warp_totals": [(r"combine\(warps_before\(tot_c, tot_a, lane, warp\), "
+                          r"lane_exclusive\(inc, lane\)\)", "lane_exclusive(inc, lane)")],
+}
+
+_DTW_ABLATION_RUN = r"""
+import numpy as np, torch
+from sonido_sonar_tpu_torch.ops.stats import hopper_dtw as H
+from sonido_sonar_tpu_torch.utils import parity
+rng = np.random.default_rng(5)
+def rand(*s):
+    return torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda()
+def ms(fn, iters=3):
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+q = rand(2, 1500, 1).abs()
+r = torch.roll(q, 7, 1).contiguous()
+_, failures = parity.check_fill(H.fill_banded_hopper(q, r, 700, 1500, 1500).cpu().numpy(),
+                                H.fill_banded_plain(q, r, 700, 1500, 1500).cpu().numpy())
+qe = rand(32, 10332, 1).abs()
+re_ = torch.roll(qe, 7, 1).contiguous()
+pre = ms(lambda: H.local_distances_hopper(qe, re_, 5167, 10332, 10332))
+loc = H.local_distances_hopper(qe[:2].contiguous(), re_[:2].contiguous(), 5167, 10332, 10332)
+rows = ms(lambda: H.fill_rows_hopper(loc, 5167, 10332, 10332))
+qw, rw = rand(2, 3000, 1), rand(2, 2900, 1)
+locw = H.local_distances_hopper(qw, rw, 20671, 3000, 2900)
+wide = ms(lambda: H.fill_rows_hopper(locw, 20671, 3000, 2900))
+print("pre-pass [32, 10332, 1] band 5167 %.3f ms; recurrence [2, 10332, 1] band 5167 %.3f ms "
+      "(%.3f us per row), [2, 3000 x 2900, 1] band 20671 %.3f ms (%.3f us per row); parity %s"
+      % (pre, rows, 1e3 * rows / 10332, wide, 1e3 * wide / 3000,
+         "ok" if not failures else "FAIL (" + failures[0] + ")"))
+"""
 
 _YIN_ABLATION_RUN = r"""
 import re, torch
@@ -177,6 +234,9 @@ def main() -> int:
                     help="time K1/K10 from edited copies of csrc/stft.cu (default: all)")
     ap.add_argument("--ablate-yin", nargs="*", metavar="NAME", choices=list(YIN_ABLATIONS),
                     help="time K2/K3 from edited copies of csrc/yin.cu (default: all)")
+    ap.add_argument("--ablate-dtw", nargs="*", metavar="NAME", choices=list(DTW_ABLATIONS),
+                    help="time the DTW fill's kernels from edited copies of csrc/dtw.cu "
+                         "(default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: needs a CUDA device")
@@ -196,6 +256,8 @@ def main() -> int:
         return ablate("stft.cu", STFT_ABLATIONS, _ABLATION_RUN, args.ablate_stft, card)
     if args.ablate_yin is not None:
         return ablate("yin.cu", YIN_ABLATIONS, _YIN_ABLATION_RUN, args.ablate_yin, card)
+    if args.ablate_dtw is not None:
+        return ablate("dtw.cu", DTW_ABLATIONS, _DTW_ABLATION_RUN, args.ablate_dtw, card)
     sr = 44100
     x = synth_pcm(args.batch, args.seconds * sr, 0, sr, "cuda")
     batched_fingerprint_features(x)
