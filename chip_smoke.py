@@ -57,10 +57,17 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
      [2, 3000 x 2900, 1] band 20671 (a 60 s budget at hop 128: rows too
      wide for shared memory, kept in the cost band); after each, the
      backtrack kernel (K8's) against the plain backtrack on the kernel's
-     own band, exactly; the pre-pass alone against its plain version at
-     K7's and the fleet's geometries (utils/parity.check_local_distances);
-     the pre-pass, the recurrence and the whole call timed apart at the
-     wide band, with us per row
+     own band, exactly, with each pair's ring misses; the pre-pass alone
+     against its plain version at K7's and the fleet's geometries
+     (utils/parity.check_local_distances); the pre-pass, the recurrence
+     and the whole call timed apart at the wide band, with us per row
+ 17b. K8 on prescribed-path bands built on the card
+     (utils/parity.prescribed_path_band), n = m = 10,332: 3,000-step up
+     and left runs, at band 5,167 also a left run to k = 0 and an up run
+     back, and the same runs at the wide band 20,671: outputs bit-equal to
+     the plain walk, the designed path followed, the misses equal to the
+     numpy model's (ops/stats/hopper_backtrack.walk_model); ms and us per
+     step
  18. the stream-alignment path at full width: FleetMonitor (44.1 kHz,
      1024/256), 64 streams x 60 s windows, 30 s budget, measure_batch 32,
      refine=True; 48 streams carry the source delayed 0.1-3 s x 0.9, 16
@@ -78,7 +85,10 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
      the bytes bounds; the kernels at B = 32,
      with pairs 0, 24 (unrelated) and 31 of it held to the plain fill and
      the plain backtrack (their offsets in the band pass 2^31 elements
-     from pair 21 on); the hybrid's host reads
+     from pair 21 on), K8's outputs bit-equal and its misses equal to the
+     model's at B = 2 and on those pairs, its time warm and with the L2
+     cache flushed (as the fleet finds it after a fill), us per step, the
+     chain floor, and a `K8 ring` JSON line; the hybrid's host reads
      under CUDA's sync debug mode (one for batched_hybrid_align, none for
      batched_hybrid_align_device, same offsets and methods)
  22. one torch.profiler step of the fleet's measure_all
@@ -109,7 +119,9 @@ launches on its path, its largest error against its plain version, its
 time, the plain version's, its bound (the larger of the bytes it must move
 over 3.35 TB/s and its operations over 67 TFLOP/s, the H100's fp32 rate
 outside the tensor cores, from this run's shapes) and, where one PyTorch
-call computes the same function, that call's time. The last line is
+call computes the same function, that call's time; the DTW fill and K8
+also carry their time at B = 32, the fleet's sub-batch (`ms_b32`). The
+last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Inputs are harmonic tones plus noise (utils/parity.synth_pcm and
 utils/parity.harmonic_clips), drawn with numpy from SEED.
@@ -148,6 +160,7 @@ OUTPUT_KEYS = (
 
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+SMEM_ROUND_TRIP = 30        # SM cycles of a dependent shared-memory load (an assumption)
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 
 
@@ -244,6 +257,24 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_ms(fn, iters: int) -> float:
+    """Mean device time of fn() over `iters` launches, CUDA events around
+    each, the 50 MB L2 cache overwritten before each (as a caller right
+    after a fill of gigabytes finds it)."""
+    flush = torch.empty(2**26, dtype=torch.float32, device="cuda")  # 256 MiB
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def timed_steps(fn, steps: int) -> list:
@@ -366,6 +397,7 @@ FLEET_STREAMS, FLEET_BATCH = 64, 32
 # the 0.7 gate fails and the banded DTW runs in both
 UNRELATED = tuple(range(24, 32)) + tuple(range(56, 64))
 CADENCE_S = 10.0                          # a production monitor's measuring interval
+PRESCRIBED_RUN = 3000                     # K8's up and left runs on the prescribed bands
 
 
 def run_alignment(card: str, dev: torch.device) -> dict:
@@ -392,7 +424,7 @@ def run_alignment(card: str, dev: torch.device) -> dict:
     n_win = ALIGN_SECONDS * SR
     n_chroma = n_win // HOP                          # 10,335: bench.py:303
     band = int(ALIGN_BUDGET * SR) // HOP             # 5,167: the 30 s budget at hop 256
-    errs = {}
+    errs, walk_errs = {}, {}
 
     def hold_dtw(q, r, band, what):
         n, m = q.shape[1], r.shape[1]
@@ -406,8 +438,47 @@ def run_alignment(card: str, dev: torch.device) -> dict:
         want = walk_plain(cost, band, n, m)
         e.update(require(parity.check_backtrack([np32(t) for t in got], [np32(t) for t in want]),
                              f"DTW backtrack vs plain on the kernel's band, {what}"))
-        log(f"[DTW {what}] path lengths {got[3].tolist()}")
+        misses = hopper_backtrack.backtrack_banded_misses(cost, band, n, m)[1]
+        log(f"[DTW {what}] path lengths {got[3].tolist()}, K8 misses {misses.tolist()}")
         return e
+
+    def hold_walk(cost, band, n, m, what, pairs, path=None):
+        """K8 against the plain walk on `pairs` of `cost`, exactly (equal
+        bits), its misses against the numpy model's (utils: walk_model, at
+        each pair's offset in the band), the designed path where there is
+        one; times the wrapper (CUDA events), warm and with the L2 cache
+        flushed, and returns (flushed ms, us per step, misses, errors)."""
+        (got, misses), sel = hopper_backtrack.backtrack_banded_misses(cost, band, n, m), pairs
+        torch.cuda.synchronize()
+        sub = cost if len(sel) == cost.shape[0] else cost[torch.tensor(sel, device=dev)]
+        want = walk_plain(sub.contiguous(), band, n, m)
+        del sub
+        got_s = [np32(t)[sel] for t in got]
+        e = require(parity.check_backtrack(got_s, [np32(t) for t in want]),
+                    f"DTW backtrack vs plain, {what}")
+        if not all(np.array_equal(g.view(np.int32), np32(t).view(np.int32))
+                   for g, t in zip(got_s, want)):
+            raise AssertionError(f"K8 {what}: outputs not bit-equal to the plain walk")
+        model = [hopper_backtrack.walk_model(np32(cost[p]), band, n, m,
+                                             offset=hopper_backtrack.band_offset(cost, p))[4]
+                 for p in sel]
+        if model != np32(misses)[sel].tolist():
+            raise AssertionError(f"K8 {what}: misses {np32(misses)[sel].tolist()}, "
+                                 f"the model's {model}")
+        if path is not None:
+            ii, jj = path
+            if not (np.array_equal(got_s[0][0, : len(ii)], ii[::-1] - 1)
+                    and np.array_equal(got_s[1][0, : len(jj)], jj[::-1] - 1)):
+                raise AssertionError(f"K8 {what}: the walk left the designed path")
+        counts = walk.launches
+        k_ms = cuda_ms(lambda: walk(cost, band, n, m), 3)
+        c_ms = cold_ms(lambda: walk(cost, band, n, m), 3)
+        walk.launches = counts
+        steps = int(got[3].max())
+        log(f"[K8 {what}] paths {got_s[3].tolist()}, misses {model} (the model's too), "
+            f"{k_ms:.3f} ms warm, {c_ms:.3f} ms with L2 flushed, {1e3 * c_ms / steps:.4f} us per "
+            f"step of the longest path (flushed) [{card}]")
+        return c_ms, 1e3 * c_ms / steps, np32(misses).tolist(), e
 
     def hold_dist(q, r, band, what):
         """The fill's distance pre-pass against its plain version."""
@@ -448,6 +519,24 @@ def run_alignment(card: str, dev: torch.device) -> dict:
     split = {f"[2, 3000 x 2900, 1] band {wide}": time_fill_parts(qw, rw, wide, card)}
     del q6, q7, qw, rw
     torch.cuda.empty_cache()
+
+    # phase 17b: K8 on prescribed-path bands built on the card, n = m =
+    # 10,332: 3,000-step up and left runs (and at band 5,167 a left run to
+    # k = 0 and an up run back), at the fleet's band and the wide band
+    n_p, run, gap = n_chroma - 3, PRESCRIBED_RUN, PRESCRIBED_RUN // 15
+    for pband, runs in (
+        (band, [("D", gap // 2), ("U", run), ("D", gap), ("L", run), ("D", gap), ("L", band),
+                ("D", gap), ("U", band), ("D", n_p - run - band - gap // 2 - 3 * gap)]),
+        (wide, [("D", gap // 2), ("U", run), ("D", gap), ("L", run),
+                ("D", n_p - run - gap // 2 - gap)]),
+    ):
+        cost_p, ii, jj = parity.prescribed_path_band(runs, pband, SEED + 13, device=dev)
+        kk = jj - ii + pband
+        what = f"prescribed path [1, {n_p}] band {pband}, k {kk.min()}..{kk.max()}"
+        walk_errs[f"prescribed {pband}"] = hold_walk(cost_p[None], pband, n_p, n_p, what, [0],
+                                                     (ii, jj))[3]
+        del cost_p
+        torch.cuda.empty_cache()
 
     # phase 18: FleetMonitor at full width (the slice's main path)
     fcfg = FeatureConfig(sample_rate=SR, window_size=WINDOW, hop_size=HOP)
@@ -560,6 +649,8 @@ def run_alignment(card: str, dev: torch.device) -> dict:
     bounds = {"fill": bound(qe.numel() * 8 + cells * 4, cells * 8)}
     steps = int(walk(cost2, band, n_e, n_e)[3].sum())
     bounds["backtrack"] = bound(steps * 24 + 2 * 4, steps * 6)
+    walk2 = hold_walk(cost2, band, n_e, n_e, f"B=2, [2, {n_e}, 1] band {band}", [0, 1])
+    walk2_steps = int(walk(cost2, band, n_e, n_e)[3].max())
     del cost2
     split[f"B=2, [2, {n_e}, 1] band {band}"] = time_fill_parts(qe, re_, band, card)
     q32, r32 = e_src[:FLEET_BATCH].contiguous(), e_cdn[:FLEET_BATCH].contiguous()
@@ -569,6 +660,9 @@ def run_alignment(card: str, dev: torch.device) -> dict:
     w32 = cuda_ms(lambda: walk(cost32, band, n_e, n_e), 3)
     log(f"DTW at B={FLEET_BATCH} (one fleet sub-batch, band {band}): backtrack {w32:.2f} ms, "
         f"cost band {cost32.numel() * 4 / 1e9:.2f} GB [{card}]")
+    times["backtrack_b32"] = w32
+    times["backtrack_b2_cold"] = walk2[0]
+    times["fill_b32"] = split[f"B={FLEET_BATCH}, [{FLEET_BATCH}, {n_e}, 1] band {band}"]["whole_ms"]
     # the sub-batch the fleet sends, checked: from pair 21 on a pair's
     # offset in the band passes 2^31 elements; pair 24 is unrelated (its
     # answer is the DTW's)
@@ -580,13 +674,27 @@ def run_alignment(card: str, dev: torch.device) -> dict:
     del plain
     got = walk(cost32, band, n_e, n_e)
     torch.cuda.synchronize()
-    want = walk_plain(cost32[sel].contiguous(), band, n_e, n_e)
-    e32.update(require(parity.check_backtrack([np32(t[sel]) for t in got], [np32(t) for t in want]),
-                       f"DTW backtrack vs plain, pairs {rows} of the B={FLEET_BATCH} band"))
+    walk32 = hold_walk(cost32, band, n_e, n_e, f"pairs {rows} of the B={FLEET_BATCH} band", rows)
+    e32.update(walk32[3])
+    times["backtrack_b32_cold"] = walk32[0]
     errs[f"K5 B={FLEET_BATCH}"] = e32
     log(f"[DTW B={FLEET_BATCH}] pairs {rows} held to plain: fill max rel "
-        f"{e32['fill_max_rel']:.3g}, path lengths {got[3][sel].tolist()}")
-    del cost32, q32, r32, got, want
+        f"{e32['fill_max_rel']:.3g}, path lengths {got[3][sel].tolist()}; K8 misses per pair "
+        f"{walk32[2]} (mean {np.mean(walk32[2]):.1f}), {1e3 * w32 / int(got[3].max()):.4f} us "
+        f"per step of the longest path (warm)")
+    # the walk's chain floor: its longest path's steps, one shared-memory
+    # round trip each (SMEM_ROUND_TRIP cycles) at the card's top SM clock
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True, timeout=60).stdout.split()[0])
+    floor_ms = walk2_steps * SMEM_ROUND_TRIP / (mhz * 1e3)
+    log(f"K8 chain floor at B=2: {walk2_steps} steps x {SMEM_ROUND_TRIP} cycles at {mhz:.0f} MHz "
+        f"= {floor_ms:.3f} ms (kernel {times['backtrack'][0]:.3f} ms) [{card}]")
+    log("K8 ring: " + json.dumps({"B2_cold_ms": walk2[0], "B2_us_per_step": walk2[1],
+                                  "B2_misses": walk2[2], "B32_ms": w32,
+                                  "B32_cold_ms": times["backtrack_b32_cold"],
+                                  "B32_misses": walk32[2], "B2_chain_floor_ms": floor_ms}))
+    del cost32, q32, r32, got
     torch.cuda.empty_cache()
 
     # the hybrid's host reads, counted by CUDA's sync debug mode: one (the
@@ -617,7 +725,7 @@ def run_alignment(card: str, dev: torch.device) -> dict:
 
     profile_step("fleet measure_all", lambda: fleet.measure_all(refine=True))  # phase 22
     fill_err = max(e["fill_max_abs"] for e in errs.values())
-    walk_err = max(e["path_cost"] for e in errs.values())
+    walk_err = max(e["path_cost"] for e in (*errs.values(), *walk_errs.values()))
     log("DTW fill parts: " + json.dumps({"split": split, "prepass_vs_plain": dist_errs}))
     return {"launches": launches, "times": times, "fill_err": fill_err, "walk_err": walk_err,
             "fleet_ms": fleet_ms, "bounds": bounds}
@@ -1246,13 +1354,16 @@ def main() -> int:
          "source": "sonido_sonar_tpu_torch/csrc/dtw.cu",
          "replaces": "sonido_sonar_tpu/ops/stats/pallas_dtw.py:297, :439, :173",
          "launches": align["launches"]["fill"], "max_abs_err": align["fill_err"],
-         "ms": align["times"]["fill"][0], "plain_ms": align["times"]["fill"][1], "key": "fill"},
+         "ms": align["times"]["fill"][0], "plain_ms": align["times"]["fill"][1], "key": "fill",
+         "ms_b32": align["times"]["fill_b32"]},
         {"name": "K8 dtw_backtrack_banded", "route": "cuda",
          "source": "sonido_sonar_tpu_torch/csrc/dtw.cu",
          "replaces": "sonido_sonar_tpu/ops/stats/pallas_backtrack.py:150",
          "launches": align["launches"]["backtrack"], "max_abs_err": align["walk_err"],
          "ms": align["times"]["backtrack"][0], "plain_ms": align["times"]["backtrack"][1],
-         "key": "backtrack"},
+         "key": "backtrack", "ms_b32": align["times"]["backtrack_b32"],
+         "ms_l2_flushed": align["times"]["backtrack_b2_cold"],
+         "ms_b32_l2_flushed": align["times"]["backtrack_b32_cold"]},
         {"name": "K9 contrast_band_means", "route": "cuda",
          "source": "sonido_sonar_tpu_torch/csrc/contrast.cu",
          "replaces": "sonido_sonar_tpu/ops/pallas_contrast.py:140",

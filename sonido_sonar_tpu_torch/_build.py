@@ -72,8 +72,8 @@ _SIGNATURES = {
     "sonido_dtw_local_distances": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # cost, batch, n, m, band, stream
     "sonido_dtw_fill_rows": (_P, _I, _I, _I, _I, _P),
-    # cost, qs, rs, cs, length, batch, n, m, band, stream
-    "sonido_dtw_backtrack_banded": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # cost, qs, rs, cs, length, batch, n, m, band, stream, misses (nullable)
+    "sonido_dtw_backtrack_banded": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
 }
 
 

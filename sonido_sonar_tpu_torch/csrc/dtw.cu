@@ -57,10 +57,24 @@
 // i == 0 steps left, j == 0 steps up; qs = i - 1, rs = j - 1 in start ->
 // end order, padded past `length` with the path's first point; cs =
 // c(i, j) - c(i-1, j-1), 0 on the borders and where |cs| >= 1e30.
-// The walk is a dependent pointer chase: one thread per pair walks it,
-// reading its three neighbours straight from the band, and writes the
-// points in walk order; then the block flips the prefix in place, pads
-// the tail and computes the costs in parallel.
+// What bounds it on this card is the walk's dependent chain, not bytes:
+// 10-20 k steps a pair at the fleet's n = 10,332, each three comparisons
+// of neighbours whose addresses depend on the step before (24 bytes a
+// step; the bytes bound is microseconds). Read straight from the band,
+// each step waited for an L2/HBM round trip. Here one block takes a pair:
+// thread 0 walks while warp 1 stages the band rows ahead of it into a
+// ring of R = 64 slots of C = 256 columns in shared memory, one bulk copy
+// a row (a window around the walker's column, its 16-byte-aligned
+// middle), published in order once complete. A step then reads shared
+// memory only; a neighbour outside its row's window is read from the
+// band in the same launch (a miss: the same value, later), so the path
+// is exact by construction, and the count of misses is an output for
+// measuring. Two things hold it above the chain's floor (PERF.md, NVIDIA
+// H100 80GB HBM3, 700 W): the copies of one block complete a few at a
+// time (~135 SM cycles a copy with 64 in flight, ~470 with one), so the
+// walker catches up with the ring; and the step's loop costs ~250
+// cycles, where a bare chain of shared loads and selects takes ~70.
+// The block then flips the walk-order outputs in place and pads the tail.
 //
 // No fast math: the sentinel clamps and the inf comparisons need IEEE.
 
@@ -506,16 +520,234 @@ __global__ void __launch_bounds__(kGlobalThreads)
   }
 }
 
-// Band read of the backtrack: +inf outside the band or the matrix.
+// ---- the backtrack -------------------------------------------------------
+
+constexpr int kRingRows = 64;   // R: rows staged ahead of the walker (a power of two)
+constexpr int kRingCols = 256;  // C: columns of a staged row (a multiple of 4)
+// Columns a staged row reaches right of the walker's column when it is
+// requested: the walker reads it at most R - 1 up steps later, one
+// column a row, and the row's unaligned end may lose three more.
+constexpr int kRingReach = kRingRows + 4;
+constexpr int kRingMask = kRingRows * kRingCols - 1;  // R C is a power of two
+// The ring, then per slot its row's window (lo, hi), the lowest row
+// published (padded to 16 bytes), then per slot the walker's request
+// (row, column) and an mbarrier.
+constexpr size_t kRingSmem =
+    sizeof(float) * kRingRows * kRingCols + 8 * kRingRows + 16 + 2 * 8 * kRingRows;
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared::cta.b32 %0, [%1];\n" : "=r"(v) : "r"(smem_addr(p)) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.cta.shared::cta.b32 [%0], %1;\n" ::"r"(smem_addr(p)), "r"(v) : "memory");
+}
+
+// A staged row as the walker holds it: band columns [lo, hi) at
+// ring[(off + k) & kRingMask] (off: the slot's start less lo; the mask
+// keeps a read outside the window inside the ring).
+struct RingRow {
+  int lo;
+  int hi;
+  int off;
+};
+
+__device__ __forceinline__ RingRow row_window(const int2* win, int r) {
+  const int s = r & (kRingRows - 1);
+  const int2 v = win[s];
+  return {v.x, v.y, s * kRingCols - v.x};
+}
+
+// The producer's copy of row r of the band into its ring slot: a window
+// of C columns around the walker's column kc (reaching kRingReach to the
+// right, the rest to the left, where a run of left steps drifts without
+// bound), clipped to the band, cut to its 16-byte-aligned middle and
+// moved by one bulk copy that completes the slot's current mbarrier
+// phase. The walker posted the request after its last read of the slot's
+// earlier row, whose values it had already used.
+__device__ __forceinline__ void stage_row(float* ring, int2* win, unsigned long long* bars,
+                                          const float* cb, int r, int kc, int w) {
+  const int s = r & (kRingRows - 1);
+  int hi = kc + kRingReach, lo = hi - kRingCols;
+  if (w <= kRingCols) {
+    lo = 0;
+    hi = w;
+  } else if (lo < 0) {
+    lo = 0;
+    hi = kRingCols;
+  } else if (hi > w) {
+    hi = w;
+    lo = w - kRingCols;
+  }
+  const float* g = cb + (size_t)r * w;
+  const int sh = shift(g);
+  const int a = lo + ((4 - ((sh + lo) & 3)) & 3);
+  const int e = max(hi - ((sh + hi) & 3), a);
+  win[s] = make_int2(a, e);
+  const unsigned bytes = 4u * static_cast<unsigned>(e - a);
+  unsigned long long* bar = bars + s;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  if (bytes > 0) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(smem_addr(ring + s * kRingCols)),
+        "l"(g + a), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+// Whether `bar`'s phase of this parity has completed (no wait).
+__device__ __forceinline__ bool phase_done(unsigned long long* bar, int parity) {
+  unsigned done;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// The producer (one thread of warp 1): rows n, n-1, ..., 0 in order. It
+// stages every row whose request the walker has posted (the row in the
+// low word, the column in the high word of the slot's request), then
+// checks, without waiting, which copies have completed in order, and
+// publishes the lowest row published so far with one release store into
+// `front` (waiting on each copy in turn held the walker to ~1.2x the
+// time, PERF.md). Rows enter a slot from n down, so row r is
+// the slot's ((n - r) / R)-th copy, of that phase parity. A producer
+// that makes no progress for too long (a lost copy, a walker that died)
+// traps, so the launch fails instead of hanging.
+__device__ void ring_producer(float* ring, int2* win, int* front, const unsigned long long* req,
+                              unsigned long long* bars, const float* cb, int n, int w) {
+  for (int s = 0; s < kRingRows; ++s) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bars + s)) : "memory");
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  int next = n, pub = n;
+  for (long long idle = 0; pub >= 0;) {
+    bool progress = false;
+    while (next >= 0) {
+      const unsigned long long e = *reinterpret_cast<const volatile unsigned long long*>(
+          req + (next & (kRingRows - 1)));
+      if (static_cast<int>(static_cast<unsigned>(e)) != next) break;
+      stage_row(ring, win, bars, cb, next, static_cast<int>(e >> 32), w);
+      --next;
+      progress = true;
+    }
+    const int top = pub;
+    while (pub > next && phase_done(bars + (pub & (kRingRows - 1)), ((n - pub) / kRingRows) & 1)) {
+      --pub;
+    }
+    if (pub != top) {
+      store_release(front, pub + 1);
+      progress = true;
+    }
+    if (progress) {
+      idle = 0;
+    } else if (++idle > (1LL << 32)) {
+      __trap();
+    }
+  }
+}
+
+// The walker's request for row r around column kc.
+__device__ __forceinline__ void post_row(unsigned long long* req, int r, int kc) {
+  *reinterpret_cast<volatile unsigned long long*>(req + (r & (kRingRows - 1))) =
+      (static_cast<unsigned long long>(static_cast<unsigned>(kc)) << 32) |
+      static_cast<unsigned>(r);
+}
+
+// Wait until the producer has published row r (the lowest published row
+// is at most r) and return the lowest published row. A row that never
+// arrives traps, so the launch fails instead of hanging.
+__device__ __forceinline__ int wait_front(const int* front, int r) {
+  int f;
+  for (long long spin = 0; (f = load_acquire(front)) > r; ++spin) {
+    if (spin > (1LL << 26)) __trap();
+  }
+  return f;
+}
+
+// The walker's slow path: a neighbour outside its row's staged window,
+// read from the band itself (+inf outside the band, not a miss).
+__device__ __forceinline__ float band_read(const float* cb, int r, int kk, int w, int& misses) {
+  if (kk < 0 || kk >= w) return CUDART_INF_F;
+  ++misses;
+  return cb[(size_t)r * w + kk];
+}
+
+// Band read at (i, j): +inf outside the band or the matrix.
 __device__ __forceinline__ float band_at(const float* cb, int i, int j, int n, int band, int w) {
   const int k = j - i + band;
   if (i < 0 || j < 0 || k < 0 || k >= w || i > n) return CUDART_INF_F;
   return cb[(size_t)i * w + k];
 }
 
-__global__ void backtrack_banded_kernel(const float* __restrict__ cost, int* __restrict__ qs,
-                                        int* __restrict__ rs, float* __restrict__ cs,
-                                        int* __restrict__ length, int n, int m, int band) {
+// The walker's state and its step once the three neighbours are read:
+// cs, the outputs at t, the move (strict-less preference up < left <
+// diag), and on a move up or diagonal the request for row i-R and the
+// shift of the rows (next: row i-2's window, read ahead).
+struct Walker {
+  int i, j, k, t;
+  float c_ij;  // the cost of the current cell
+  RingRow cur, up, next;
+
+  __device__ __forceinline__ void step(float upv, float dv, float lv, int* qb, int* rbp, float* csb,
+                                       unsigned long long* req) {
+    float c = __fsub_rn(c_ij, dv);
+    if (!(fabsf(c) < 1e30f)) c = 0.0f;
+    qb[t] = i - 1;
+    rbp[t] = j - 1;
+    csb[t] = c;
+    ++t;
+    const bool pick_diag = (dv < upv) && (dv < lv);
+    const bool pick_left = !pick_diag && (lv < upv);
+    c_ij = pick_diag ? dv : (pick_left ? lv : upv);
+    k += pick_diag ? 0 : (pick_left ? -1 : 1);
+    j -= pick_left || pick_diag ? 1 : 0;
+    if (!pick_left) {
+      if (i >= kRingRows) post_row(req, i - kRingRows, k);
+      --i;
+      cur = up;
+      up = next;
+    }
+  }
+};
+
+// One block per pair. Thread 0 walks from (n, m) to (0, 0) in band
+// coordinates (k = j - i + band: up is (i-1, k+1), left (i, k-1), diag
+// (i-1, k)), so a step touches rows i and i-1 only. Rows i .. i-R+1 sit
+// in a ring of R slots of shared memory, staged ahead by a producer
+// thread (warp 1): when the walker leaves row i, it posts row i-R for
+// the freed slot around its new column and moves to row i-2's window,
+// read ahead, once the producer has published that row. Neither the
+// copies nor their mbarriers are on the walker's chain. The hot loop
+// holds no nested loop and no global read (either, even untaken, cost
+// the step ~40-160 cycles, PERF.md): it issues a step's three shared
+// loads, compares and moves; a step with a neighbour outside its row's
+// window (read from the band: a miss, the same value later) and the
+// wait for a row not yet seen published run outside it. cs comes from
+// the walk: c(i, j) is the neighbour chosen one step earlier (at (n, m),
+// one read), c(i-1, j-1) this step's diag. The block then flips the
+// walk-order outputs in place and pads the tail.
+__global__ void __launch_bounds__(kBacktrackThreads)
+    backtrack_banded_kernel(const float* __restrict__ cost, int* __restrict__ qs,
+                            int* __restrict__ rs, float* __restrict__ cs,
+                            int* __restrict__ length, int* __restrict__ misses_out, int n, int m,
+                            int band) {
+  extern __shared__ __align__(16) float ring[];
+  int2* win = reinterpret_cast<int2*>(ring + kRingRows * kRingCols);
+  int* front = reinterpret_cast<int*>(win + kRingRows);
+  unsigned long long* req = reinterpret_cast<unsigned long long*>(front + 4);
+  unsigned long long* bars = req + kRingRows;
   __shared__ int s_len;
   __shared__ int s_pad_q;
   __shared__ int s_pad_r;
@@ -527,60 +759,88 @@ __global__ void backtrack_banded_kernel(const float* __restrict__ cost, int* __r
   int* rbp = rs + (size_t)b * max_len;
   float* csb = cs + (size_t)b * max_len;
 
+  for (int s = threadIdx.x; s < kRingRows; s += blockDim.x) {
+    req[s] = 0xffffffffull;  // row -1: no request
+  }
+  if (threadIdx.x == 0) *front = n + 1;  // nothing published
+  __syncthreads();
+  if (threadIdx.x == 32) ring_producer(ring, win, front, req, bars, cb, n, w);
   if (threadIdx.x == 0) {
-    int i = n, j = m, k = 0;
-    while ((i > 0 || j > 0) && k < max_len) {
-      qb[k] = i - 1;
-      rbp[k] = j - 1;
-      ++k;
-      int ni, nj;
-      if (i == 0) {
-        ni = 0;
-        nj = j - 1;
-      } else if (j == 0) {
-        ni = i - 1;
-        nj = 0;
-      } else {
-        const float up = band_at(cb, i - 1, j, n, band, w);
-        const float left = band_at(cb, i, j - 1, n, band, w);
-        const float diag = band_at(cb, i - 1, j - 1, n, band, w);
-        const bool pick_left = left < up;
-        const bool pick_diag = (diag < up) && (diag < left);
-        ni = pick_diag ? i - 1 : (pick_left ? i : i - 1);
-        nj = pick_diag ? j - 1 : (pick_left ? j - 1 : j);
+    int misses = 0;
+    Walker v{n, m, m - n + band, 0, band_at(cb, n, m, n, band, w), {}, {}, {}};
+    for (int r = n; r >= 0 && r > n - kRingRows; --r) post_row(req, r, v.k);
+    int seen = wait_front(front, n - 1);
+    v.cur = row_window(win, n);
+    v.up = row_window(win, n - 1);
+    int& i = v.i;
+    int& j = v.j;
+    int& k = v.k;
+    int& t = v.t;
+    for (;;) {
+      if (i > 0 && i - 1 < seen) {  // the walker caught up with the producer
+        seen = wait_front(front, i - 1);
+        v.up = row_window(win, i - 1);
       }
-      i = ni;
-      j = nj;
+      // the hot loop; a miss, or a row not yet seen published, exits it
+      while (i > 0 && j > 0) {
+        v.next = row_window(win, i - 2);  // used once row i-2 is published
+        const int ua = v.up.off + k, la = v.cur.off + k - 1;
+        const float upv = ring[(ua + 1) & kRingMask];
+        const float dv = ring[ua & kRingMask];
+        const float lv = ring[la & kRingMask];
+        if (!(k >= v.up.lo && k + 1 < v.up.hi && k - 1 >= v.cur.lo && k - 1 < v.cur.hi)) break;
+        v.step(upv, dv, lv, qb, rbp, csb, req);
+        if (i - 1 < seen) break;
+      }
+      if (i == 0 || j == 0) break;
+      if (i - 1 < seen) continue;
+      // a step with reads outside the windows (misses)
+      v.next = row_window(win, i - 2);
+      const bool u_in = k + 1 >= v.up.lo && k + 1 < v.up.hi;
+      const bool d_in = k >= v.up.lo && k < v.up.hi;
+      const bool l_in = k - 1 >= v.cur.lo && k - 1 < v.cur.hi;
+      const float upv = u_in ? ring[v.up.off + k + 1] : band_read(cb, i - 1, k + 1, w, misses);
+      const float dv = d_in ? ring[v.up.off + k] : band_read(cb, i - 1, k, w, misses);
+      const float lv = l_in ? ring[v.cur.off + k - 1] : band_read(cb, i, k - 1, w, misses);
+      v.step(upv, dv, lv, qb, rbp, csb, req);
     }
-    s_len = k;
-    s_pad_q = k > 0 ? qb[k - 1] : 0;
-    s_pad_r = k > 0 ? rbp[k - 1] : 0;
-    length[b] = k;
+    for (; i > 0; ++t) {  // j == 0: up along column 0, no reads; the requests go on
+      qb[t] = i - 1;
+      rbp[t] = -1;
+      csb[t] = 0.0f;
+      ++k;
+      if (i - kRingRows >= 0) post_row(req, i - kRingRows, k);
+      --i;
+    }
+    for (; j > 0; ++t) {  // i == 0: left along row 0, no reads
+      qb[t] = -1;
+      rbp[t] = j - 1;
+      csb[t] = 0.0f;
+      --j;
+    }
+    s_len = t;
+    s_pad_q = t > 0 ? qb[t - 1] : 0;
+    s_pad_r = t > 0 ? rbp[t - 1] : 0;
+    length[b] = t;
+    if (misses_out != nullptr) misses_out[b] = misses;
   }
   __syncthreads();
   const int len = s_len;
   for (int t = threadIdx.x; t < len / 2; t += blockDim.x) {
     const int u = len - 1 - t;
     const int tq = qb[t], tr = rbp[t];
+    const float tc = csb[t];
     qb[t] = qb[u];
     rbp[t] = rbp[u];
+    csb[t] = csb[u];
     qb[u] = tq;
     rbp[u] = tr;
+    csb[u] = tc;
   }
   for (int t = len + threadIdx.x; t < max_len; t += blockDim.x) {
     qb[t] = s_pad_q;
     rbp[t] = s_pad_r;
     csb[t] = 0.0f;
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < len; t += blockDim.x) {
-    const int i = qb[t] + 1, j = rbp[t] + 1;
-    float c = 0.0f;
-    if (i > 0 && j > 0) {
-      c = __fsub_rn(band_at(cb, i, j, n, band, w), band_at(cb, i - 1, j - 1, n, band, w));
-      if (!(fabsf(c) < 1e30f)) c = 0.0f;
-    }
-    csb[t] = c;
   }
 }
 
@@ -681,11 +941,18 @@ extern "C" int sonido_dtw_fill_banded(const float* q, const float* r, float* cos
 }
 
 // Launch the banded backtrack on `stream`; returns the CUDA error code.
+// `misses` (nullable) receives each pair's count of neighbours read from
+// the band instead of the ring.
 extern "C" int sonido_dtw_backtrack_banded(const float* cost, int* qs, int* rs, float* cs,
                                            int* length, int batch, int n, int m, int band,
-                                           void* stream) {
+                                           void* stream, int* misses) {
   if (batch < 1 || n < 1 || m < 1 || band < 0) return static_cast<int>(cudaErrorInvalidValue);
-  backtrack_banded_kernel<<<batch, kBacktrackThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      cost, qs, rs, cs, length, n, m, band);
+  const cudaError_t err = cudaFuncSetAttribute(backtrack_banded_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(kRingSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  backtrack_banded_kernel<<<batch, kBacktrackThreads, kRingSmem,
+                            static_cast<cudaStream_t>(stream)>>>(cost, qs, rs, cs, length, misses,
+                                                                 n, m, band);
   return static_cast<int>(cudaGetLastError());
 }

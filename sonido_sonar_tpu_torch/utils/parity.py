@@ -648,3 +648,55 @@ def alignment_streams(n_streams: int, seconds: float, sample_rate: int, lags_sam
         env_u = np.repeat(rng.uniform(0.1, 1.0, seg), -(-n // seg))[:n]
         cdn[i] = (rng.standard_normal(n, dtype=np.float32) * 0.1 * env_u).astype(np.float32)
     return torch.from_numpy(src).to(device), torch.from_numpy(cdn).to(device)
+
+
+def prescribed_path_band(runs, band: int, seed: int, device="cpu"):
+    """A cost band whose greedy walk is a designed path: (band [n+1, 2 band
+    + 1] float32 on `device`, ii, jj int64 numpy: the cells the walk
+    visits, (n, m) first, (0, 0) left out).
+
+    `runs` is a sequence of (move, count): "U" (i - 1), "L" (j - 1) or "D"
+    (both), walked from (n, m) to (0, 0), so n = #U + #D and m = #L + #D.
+    The path's cells up to its first cell on a border (i == 0 or j == 0)
+    hold values that fall along the walk, below every other cell of the
+    band, which holds dtw.BIG or, at random, a finite value above the
+    path's; past that cell the walk moves along the border and reads
+    nothing. An up step next to a left step would let the walk cut the
+    corner by a diagonal, so that is refused, as is a path cell outside
+    the band. (Once on a border the counts leave only border steps.)
+    Drawn from `seed` (numpy for the path, a torch generator on `device`
+    for the rest).
+    """
+    moves = "".join(mv * int(cnt) for mv, cnt in runs)
+    if set(moves) - set("UDL"):
+        raise ValueError(f"moves must be U, L or D: {sorted(set(moves))}")
+    n = moves.count("U") + moves.count("D")
+    m = moves.count("L") + moves.count("D")
+    w = 2 * band + 1
+    i, j, ii, jj, arrive = n, m, [n], [m], None
+    for t, mv in enumerate(moves):
+        if arrive is None and (i == 0 or j == 0):
+            arrive = t
+        if arrive is None and t > 0 and {mv, moves[t - 1]} == {"U", "L"}:
+            raise ValueError(f"step {t}: an up step next to a left step")
+        i, j = i - (mv in "UD"), j - (mv in "LD")
+        ii.append(i)
+        jj.append(j)
+    # the cells up to the first on a border, (0, 0) at the latest
+    valued = slice(0, len(moves) + 1 if arrive is None else arrive + 1)
+    ii, jj = np.array(ii, np.int64), np.array(jj, np.int64)
+    kk = jj - ii + band
+    if ((kk[valued] < 0) | (kk[valued] >= w)).any():
+        raise ValueError("a path cell lies outside the band")
+    from sonido_sonar_tpu_torch.ops.stats.dtw import BIG
+
+    rng = np.random.default_rng(seed)
+    vals = np.cumsum(rng.uniform(0.5, 1.5, len(ii)))[::-1].astype(np.float32)[valued]
+    top = float(vals.max())
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand((n + 1, w), generator=gen, device=device)
+    out = torch.where(u < 0.5, torch.tensor(BIG, device=device),
+                      (2.0 * top + 1.0) * (1.0 + u))
+    out[torch.from_numpy(ii[valued]).to(device), torch.from_numpy(kk[valued]).to(device)] = \
+        torch.from_numpy(vals).to(device)
+    return out, ii[:-1], jj[:-1]

@@ -6,8 +6,12 @@ are held to JAX's lax versions (`dtw._fill_banded`, `_backtrack_banded`)
 and to its three Pallas fills and the Pallas backtrack in interpret mode,
 at the shapes of tests/test_pallas_dtw.py. On a CPU tensor each wrapper
 runs its plain version without building anything; the kernels are held
-to the plain versions on the card by chip_smoke.py. Tolerances are those
-of sonido_sonar_tpu_torch/utils/parity.py.
+to the plain versions on the card by chip_smoke.py. The numpy model of
+the backtrack kernel's walk (its ring of staged rows and the reads that
+miss it, `hopper_backtrack.walk_model`) is held to the plain walk bit for
+bit, on bands whose path is designed (utils/parity.prescribed_path_band)
+and on filled bands. Tolerances are those of
+sonido_sonar_tpu_torch/utils/parity.py.
 """
 
 import numpy as np
@@ -28,6 +32,7 @@ from sonido_sonar_tpu.ops.stats.pallas_dtw import (  # noqa: E402
 )
 from sonido_sonar_tpu_torch import _build  # noqa: E402
 from sonido_sonar_tpu_torch.ops.stats import dtw as tdtw  # noqa: E402
+from sonido_sonar_tpu_torch.ops.stats import hopper_backtrack  # noqa: E402
 from sonido_sonar_tpu_torch.ops.stats.hopper_backtrack import backtrack_banded_hopper  # noqa: E402
 from sonido_sonar_tpu_torch.ops.stats.hopper_dtw import (  # noqa: E402
     fill_banded_hopper,
@@ -174,6 +179,118 @@ def test_backtrack_plain_matches_jax_on_one_band(n, m, band, d):
     for b in range(2):
         lax = jdtw._backtrack_banded(band_j[b], band, n, m)
         _require(parity.check_backtrack([t[b].numpy() for t in got], [np.asarray(t) for t in lax]))
+
+
+# Prescribed-path bands (utils/parity.prescribed_path_band): runs of moves
+# from (n, m) to (0, 0), the band, the ring's (rows, cols) in the model,
+# and the band columns k = j - i + band the walk must reach.
+_SQUARE_RUNS = (("D", 3), ("U", 150), ("D", 3), ("L", 300), ("D", 3), ("U", 150), ("D", 10))
+_NARROW_RUNS = (("D", 5), ("U", 10), ("D", 5), ("L", 20), ("D", 5), ("U", 10), ("D", 20))
+PRESCRIBED = {
+    # left run 300 > C, up runs 150 > C / 2, k = w - 1 then k = 0
+    "runs_square": (_SQUARE_RUNS, 150, 8, 32, (0, 300)),
+    "runs_square_kernel_ring": (_SQUARE_RUNS, 150, hopper_backtrack.RING_ROWS,
+                                hopper_backtrack.RING_COLS, (0, 300)),
+    # n = 200 != m = 260; reaches row 0 at j = 72 (k = w - 1), then 72
+    # steps left along i = 0
+    "border_i0": ((("D", 5), ("L", 40), ("D", 3), ("U", 20), ("D", 140), ("U", 32), ("L", 72)),
+                  72, 8, 32, (73, 144)),
+    # n = 180 != m = 150; reaches column 0 at i = 40 (k = 0), then 40 steps
+    # up along j = 0
+    "border_j0": ((("D", 10), ("U", 30), ("D", 100), ("L", 40), ("U", 40)), 40, 8, 32, (0, 40)),
+    # w = 21 < C: the whole row is the window, less its unaligned ends
+    "narrow_band": (_NARROW_RUNS, 10, 8, 32, (0, 20)),
+    "narrow_band_kernel_ring": (_NARROW_RUNS, 10, hopper_backtrack.RING_ROWS,
+                                hopper_backtrack.RING_COLS, (0, 20)),
+}
+
+
+def _longest_run(steps, move):
+    best = run = 0
+    for s in steps:
+        run = run + 1 if s == move else 0
+        best = max(best, run)
+    return best
+
+
+@pytest.mark.parametrize("case", list(PRESCRIBED))
+def test_walk_model_on_prescribed_paths(case):
+    """The numpy model of the kernel's walk (its ring of staged rows, the
+    windows' aligned middles, the reads that miss) equals the plain walk
+    bit for bit on a band whose path is designed, at every 16-byte offset
+    of the band; the plain walk follows the design and equals JAX's lax
+    backtrack and K8 in interpret mode. The designed runs happen (the
+    band columns reached, the run lengths) and the model's reads miss."""
+    runs, band, rows, cols, (k_lo, k_hi) = PRESCRIBED[case]
+    cost, ii, jj = parity.prescribed_path_band(runs, band, seed=len(case))
+    n, m = int(ii[0]), int(jj[0])
+    plain = tdtw._backtrack_banded(cost, band, n, m)
+    length = int(plain[3])
+    assert length == len(ii)
+    np.testing.assert_array_equal(plain[0][:length].numpy(), ii[::-1] - 1)
+    np.testing.assert_array_equal(plain[1][:length].numpy(), jj[::-1] - 1)
+    kk = jj - ii + band
+    assert (int(kk.min()), int(kk.max())) == (k_lo, k_hi)
+    for offset in range(4):
+        *model, model_len, misses = hopper_backtrack.walk_model(cost.numpy(), band, n, m, rows,
+                                                                cols, offset)
+        assert model_len == length
+        for got, want in zip(model, plain[:3]):
+            np.testing.assert_array_equal(got.view(np.int32), want.numpy().view(np.int32))
+        assert misses > 0, offset
+    steps = [("U" if di else "L") if di != dj else "D"
+             for di, dj in zip(-np.diff(ii), -np.diff(jj))]
+    if case.startswith("runs_square"):
+        assert _longest_run(steps, "L") > cols and _longest_run(steps, "U") > cols // 2
+    band_j = jnp.asarray(cost.numpy())
+    lax = jdtw._backtrack_banded(band_j, band, n, m)
+    _require(parity.check_backtrack([t.numpy() for t in plain], [np.asarray(t) for t in lax]))
+    pallas = backtrack_banded_pallas_batch(band_j[None], band, n, m, interpret=True)
+    _require(parity.check_backtrack([t.numpy() for t in plain],
+                                    [np.asarray(t)[0] for t in pallas]))
+
+
+@pytest.mark.parametrize("n,m,band,d", [(120, 120, 12, 4), (97, 100, 8, 1), (300, 280, 40, 1)])
+def test_walk_model_matches_plain_on_filled_bands(n, m, band, d):
+    """On bands the plain fill gives, the model's walk equals the plain
+    walk bit for bit at the kernel's ring and at a small one."""
+    q, r = (torch.from_numpy(a) for a in _pairs(n * m, 1, n, m, d))
+    cost = tdtw._fill_banded(q, r, band, n, m)
+    plain = tdtw._backtrack_banded(cost, band, n, m)
+    for rows, cols in ((hopper_backtrack.RING_ROWS, hopper_backtrack.RING_COLS), (2, 8)):
+        *model, model_len, _ = hopper_backtrack.walk_model(cost[0].numpy(), band, n, m, rows, cols)
+        assert model_len == int(plain[3][0])
+        for got, want in zip(model, plain[:3]):
+            np.testing.assert_array_equal(got.view(np.int32), want[0].numpy().view(np.int32))
+
+
+def test_ring_constants_match_the_kernel():
+    """The model's default ring is the kernel's (csrc/dtw.cu)."""
+    src = (_build._PKG / "csrc" / "dtw.cu").read_text()
+    assert f"kRingRows = {hopper_backtrack.RING_ROWS};" in src
+    assert f"kRingCols = {hopper_backtrack.RING_COLS};" in src
+    assert hopper_backtrack.RING_COLS % 4 == 0
+    assert hopper_backtrack.RING_ROWS & (hopper_backtrack.RING_ROWS - 1) == 0
+
+
+@pytest.mark.parametrize("runs,band", [
+    ((("U", 2), ("L", 2), ("D", 1)), 5),   # an up step next to a left step
+    ((("U", 8), ("D", 2), ("L", 8)), 3),   # a path cell outside the band
+    ((("D", 2), ("X", 1)), 5),             # not a move
+])
+def test_prescribed_path_band_refuses_what_the_walk_would_not_follow(runs, band):
+    with pytest.raises(ValueError):
+        parity.prescribed_path_band(runs, band, seed=0)
+
+
+def test_misses_launcher_refuses_what_the_kernel_cannot_take():
+    """backtrack_banded_misses launches the kernel only: a CPU or meta
+    band is a KernelError, and the wrapper's launch count stays put."""
+    before = backtrack_banded_hopper.launches
+    for dev in ("cpu", "meta"):
+        with pytest.raises(_build.KernelError):
+            hopper_backtrack.backtrack_banded_misses(torch.zeros((1, 5, 5), device=dev), 2, 4, 4)
+    assert backtrack_banded_hopper.launches == before
 
 
 @pytest.mark.parametrize("pattern", ["symmetric2", "asymmetric", "symmetric1"])

@@ -382,7 +382,7 @@ def test_build_command_targets_hopper(tmp_path, monkeypatch):
     assert sigs["sonido_dtw_fill_banded"] == (P, P, P, I, I, I, I, I, P)
     assert sigs["sonido_dtw_local_distances"] == (P, P, P, I, I, I, I, I, P)
     assert sigs["sonido_dtw_fill_rows"] == (P, I, I, I, I, P)
-    assert sigs["sonido_dtw_backtrack_banded"] == (P, P, P, P, P, I, I, I, I, P)
+    assert sigs["sonido_dtw_backtrack_banded"] == (P, P, P, P, P, I, I, I, I, P, P)
     sources = "".join((_build._PKG / s).read_text() for s in _build.SOURCES)
     for name, argtypes in sigs.items():
         decl = sources[sources.index(f'extern "C" int {name}('):]

@@ -34,6 +34,15 @@ version at [2, 1500, 1] band 700, then the distance pre-pass timed at the
 fleet's sub-batch [32, 10332, 1] band 5167 and the row recurrence at
 [2, 10332, 1] band 5167 (shared rows) and [2, 3000 x 2900, 1] band 20671
 (rows in the band), with us per row.
+
+    python3 tools/profile_torch.py --ablate-walk [NAME ...]
+
+does the same for the backtrack in csrc/dtw.cu (WALK_ABLATIONS, among
+them the ring's rows R and columns C): K8 held to its plain version and
+timed, with us per step and each pair's misses, on the fleet's energies
+[2, 10332, 1] band 5167 (a related pair delayed 2.9 s, an unrelated
+one), a prescribed-path band of that geometry (3,000-step up and left
+runs, utils/parity.prescribed_path_band) and K6's [8, 2048, 12] band 64.
 """
 
 from __future__ import annotations
@@ -131,6 +140,75 @@ print("pre-pass [32, 10332, 1] band 5167 %.3f ms; recurrence [2, 10332, 1] band 
       "(%.3f us per row), [2, 3000 x 2900, 1] band 20671 %.3f ms (%.3f us per row); parity %s"
       % (pre, rows, 1e3 * rows / 10332, wide, 1e3 * wide / 3000,
          "ok" if not failures else "FAIL (" + failures[0] + ")"))
+"""
+
+# name -> regex edits of csrc/dtw.cu for the backtrack K8 (each must
+# match exactly once)
+WALK_ABLATIONS = {
+    "shipped": [],
+    "drop_output_stores": [(r"\n    qb\[t\] = i - 1;\n    rbp\[t\] = j - 1;\n    csb\[t\] = c;", "")],
+    "drop_miss_path": [(r"\n        if \(!\(k >= v\.up\.lo && [^\n]*\) break;", "")],
+    "drop_path_cost": [(r"\n    float c = __fsub_rn\(c_ij, dv\);\n    if \(!\(fabsf\(c\) < 1e30f\)\) "
+                        r"c = 0\.0f;", "\n    const float c = 0.0f;")],
+    # diagnostics: each pair's misses + the walker's refreshes of the
+    # published row (refresh_count) or + its cycles in them / 100
+    "refresh_count": [(r"\n        seen = wait_front\(front, i - 1\);",
+                       "\n        seen = wait_front(front, i - 1);\n        ++misses;")],
+    "refresh_cycles": [(r"\n        seen = wait_front\(front, i - 1\);",
+                        "\n        const long long t_w = clock64();\n        seen = wait_front(front, i - 1);"
+                        "\n        misses += static_cast<int>((clock64() - t_w) / 100);")],
+    "ring_rows_32": [(r"kRingRows = 64;", "kRingRows = 32;")],
+    "ring_rows_128": [(r"kRingRows = 64;", "kRingRows = 128;")],
+    "ring_cols_128": [(r"kRingCols = 256;", "kRingCols = 128;")],
+    "ring_cols_512": [(r"kRingCols = 256;", "kRingCols = 512;")],
+}
+
+# the step with only its comparisons and moves left (timing only)
+WALK_ABLATIONS["minimal_step"] = [e for k in ("drop_miss_path", "drop_path_cost",
+                                              "drop_output_stores")
+                                  for e in WALK_ABLATIONS[k]]
+
+_WALK_ABLATION_RUN = r"""
+import re, numpy as np, torch
+from sonido_sonar_tpu_torch import _build
+from sonido_sonar_tpu_torch.ops.stats import hopper_backtrack as HB, hopper_dtw as HD
+from sonido_sonar_tpu_torch.ops.temporal import short_time_energy
+from sonido_sonar_tpu_torch.utils import parity
+log = _build.build()[1].compiler_log
+regs = re.findall(r"backtrack_banded_kernel[^']*' for.*?Used (\d+) registers", log, re.S)
+def ms(fn, iters=3):
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+def walk(cost, band, n, m):
+    (got, misses) = HB.backtrack_banded_misses(cost, band, n, m)
+    want = HB.backtrack_banded_plain(cost, band, n, m)
+    fail = parity.check_backtrack([t.cpu().numpy() for t in got], [t.cpu().numpy() for t in want])[1]
+    t = ms(lambda: HB.backtrack_banded_hopper(cost, band, n, m))
+    steps = int(got[3].max())
+    return t, 1e3 * t / steps, misses.tolist(), fail
+src, cdn = parity.alignment_streams(2, 60, 44100, [int(2.9 * 44100), 0], 11, unrelated=(1,),
+                                    device="cuda")
+es = short_time_energy(src, 1024, 256)[..., None].contiguous()
+ec = short_time_energy(cdn, 1024, 256)[..., None].contiguous()
+n = es.shape[1]
+fleet = walk(HD.fill_banded_hopper(es, ec, 5167, n, n), 5167, n, n)
+runs = [("D", 100), ("U", 3000), ("D", 200), ("L", 3000), ("D", n - 3300)]
+pb = parity.prescribed_path_band(runs, 5167, 7, device="cuda")[0][None].contiguous()
+pres = walk(pb, 5167, n, n)
+del pb
+q6 = torch.from_numpy(np.random.default_rng(3).standard_normal((8, 2048, 12), dtype=np.float32)).cuda()
+k6 = walk(HD.fill_banded_hopper(q6, torch.roll(q6, 5, 1).contiguous(), 64, 2048, 2048), 64, 2048, 2048)
+fails = fleet[3] + pres[3] + k6[3]
+print("fleet [2, %d, 1] band 5167 %.3f ms (%.4f us per step, misses %s); prescribed band %.3f ms "
+      "(%.4f us per step, misses %s); K6 %.3f ms (%.4f us per step); %s registers; parity %s"
+      % (n, fleet[0], fleet[1], fleet[2], pres[0], pres[1], pres[2], k6[0], k6[1],
+         "/".join(regs), "ok" if not fails else "FAIL (" + fails[0] + ")"))
 """
 
 _YIN_ABLATION_RUN = r"""
@@ -237,6 +315,9 @@ def main() -> int:
     ap.add_argument("--ablate-dtw", nargs="*", metavar="NAME", choices=list(DTW_ABLATIONS),
                     help="time the DTW fill's kernels from edited copies of csrc/dtw.cu "
                          "(default: all)")
+    ap.add_argument("--ablate-walk", nargs="*", metavar="NAME", choices=list(WALK_ABLATIONS),
+                    help="time the DTW backtrack from edited copies of csrc/dtw.cu "
+                         "(default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: needs a CUDA device")
@@ -258,6 +339,8 @@ def main() -> int:
         return ablate("yin.cu", YIN_ABLATIONS, _YIN_ABLATION_RUN, args.ablate_yin, card)
     if args.ablate_dtw is not None:
         return ablate("dtw.cu", DTW_ABLATIONS, _DTW_ABLATION_RUN, args.ablate_dtw, card)
+    if args.ablate_walk is not None:
+        return ablate("dtw.cu", WALK_ABLATIONS, _WALK_ABLATION_RUN, args.ablate_walk, card)
     sr = 44100
     x = synth_pcm(args.batch, args.seconds * sr, 0, sr, "cuda")
     batched_fingerprint_features(x)
