@@ -89,9 +89,22 @@ def zero_crossings(frames: torch.Tensor) -> torch.Tensor:
     return torch.sum(changes, dim=-1).to(torch.float32)
 
 
+def per_second(counts: torch.Tensor, window_size: int, sample_rate: int) -> torch.Tensor:
+    """Counts per frame of `window_size` samples -> per second, as
+    counts * fl32(1 / fl32(W / sr)): one float32 reciprocal, computed
+    once, on every device. That is what JAX's jitted division by the
+    constant W / sr computes (XLA multiplies by the constant's float32
+    reciprocal), and what PyTorch's CUDA division by a scalar computes;
+    PyTorch's CPU division rounds once and differs from both by an ulp
+    on some frames (at 16 kHz, 161 / 0.064 gives 2515.625 against
+    2515.6248)."""
+    inv = np.float32(1.0) / np.float32(window_size / float(sample_rate))
+    return counts * float(inv)  # a float32 value: exact as a scalar on every device
+
+
 def zcr(frames: torch.Tensor, sample_rate: int) -> torch.Tensor:
     """Crossings per second (zero_crossing_rate.go:37-53)."""
-    return zero_crossings(frames) / (frames.shape[-1] / float(sample_rate))
+    return per_second(zero_crossings(frames), frames.shape[-1], sample_rate)
 
 
 def zcr_from_signal(
@@ -108,7 +121,7 @@ def zcr_from_signal(
     cs = torch.nn.functional.pad(torch.cumsum(changes, dim=-1, dtype=torch.int32), (1, 0))
     starts = torch.arange(t, device=signal.device) * hop_size
     counts = cs[..., starts + window_size - 1] - cs[..., starts]
-    return counts.to(torch.float32) / (window_size / float(sample_rate))
+    return per_second(counts.to(torch.float32), window_size, sample_rate)
 
 
 def _frame_descriptors(

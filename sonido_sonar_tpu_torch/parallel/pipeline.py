@@ -130,7 +130,7 @@ def batched_fingerprint_features(
 
     # from the K1 epilogue: crossings/sec like ops.spectral.zcr; rolloff
     # bin -> Hz on the same grid as ops.spectral._freq_bins
-    out["zcr"] = aux["zero_crossings"] / (window_size / float(sample_rate))
+    out["zcr"] = S.per_second(aux["zero_crossings"], window_size, sample_rate)
     nyquist = sample_rate / 2.0
     out["spectral_rolloff"] = aux["rolloff_bin"] * (nyquist / float(mag.shape[-1] - 1))
     out["low_energy_ratio"] = aux["low_energy_ratio"]

@@ -107,6 +107,28 @@ def test_batched_music_extractor_features_matches_jax(music, music_pair):
     assert not failures, (failures, errors)
 
 
+@pytest.mark.parametrize("sr,window,hop", [(16000, 1024, 256), (8000, 512, 128)])
+def test_music_zcr_rates_match_jax(sr, window, hop):
+    """The music program at 16 kHz and 8 kHz on the harmonic clips with
+    the pulses above, ZCR bit-equal to JAX away from near-zero samples
+    (ops/spectral.per_second scales the counts as JAX's jit does)."""
+    n = int(1.5 * sr)
+    x = parity.harmonic_clips(3, n, 32, sr).numpy()
+    pulse = 1.0 + 0.8 * (np.mod(np.arange(n) / sr, 0.5) < 0.05)
+    x = (x * pulse).astype(np.float32)
+    got = _t(tpipe.batched_music_extractor_features(torch.from_numpy(x), sr, window, hop))
+    ref = _j(jpipe.batched_music_extractor_features(jnp.asarray(x), sr, window, hop))
+    pre = np.asarray(jfilters.pre_emphasis_for_content(jfilters.dc_removal(jnp.asarray(x)), "music"))
+    near = parity.near_zero_frames(pre, window, hop, 0.0, parity.DC_NEAR_ZERO)
+    chroma = ref["chroma"]
+    cn = chroma / np.maximum(np.linalg.norm(chroma, axis=-1, keepdims=True), 1e-10)
+    sims = np.sort(cn @ _CHORD_MATRIX.T, axis=-1)
+    errors, failures = parity.check_extracted(
+        got, ref, sr, window, near_zero=near, n_samples=n, chord_margin=sims[..., -1] - sims[..., -2])
+    assert not failures, (failures, errors)
+    assert "zcr" in errors
+
+
 def test_music_outputs_are_live(music_pair):
     """The pulses give onsets and a 120 BPM tempo. (The per-frame pitch
     sees frames of N/T = 259 samples, 129 lags: nothing under 342 Hz, so

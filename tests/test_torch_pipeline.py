@@ -82,6 +82,22 @@ def test_flags_and_geometries_match_jax(flags):
     assert ("pitch" in got) == flags.get("enable_pitch", True)
 
 
+@pytest.mark.parametrize("sr,window,hop", [(16000, 1024, 256), (8000, 512, 128)])
+def test_zcr_rates_match_jax(sr, window, hop):
+    """The whole slice at 16 kHz and 8 kHz, ZCR bit-equal to JAX (its
+    exact gate): at these rates torch's exact CPU division by W / sr and
+    JAX's multiplication by the float32 reciprocal round some frames
+    differently, so the port scales by that reciprocal
+    (ops/spectral.per_second)."""
+    x = parity.synth_pcm(2, sr, 3, sr).numpy()
+    got, _ = _compare(x, sample_rate=sr, window_size=window, hop_size=hop)
+    assert len(got) == 19
+    if sr == 16000:  # the case rounds differently under an exact division
+        counts = torch.from_numpy(got["zcr"]) * (window / float(sr))
+        exact = torch.round(counts) / (window / float(sr))
+        assert (exact.numpy() != got["zcr"]).any()
+
+
 def test_input_cast_to_float32():
     x = _pcm(2, SR // 2, 3)
     a = torch_features(torch.from_numpy(x))
