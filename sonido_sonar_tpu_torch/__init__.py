@@ -29,6 +29,13 @@ Entry points of the ported slices:
 
 This package never imports JAX or `sonido_sonar_tpu`.
 """
+from sonido_sonar_tpu_torch.config import (  # noqa: F401,E402
+    AlignmentConfig,
+    ComparisonConfig,
+    ContentType,
+    FeatureConfig,
+    FingerprintConfig,
+)
 from sonido_sonar_tpu_torch.monitor import (  # noqa: F401,E402
     FleetMonitor,
     LatencyMeasurement,

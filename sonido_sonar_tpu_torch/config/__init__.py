@@ -15,4 +15,10 @@ from sonido_sonar_tpu_torch.config.config import (  # noqa: F401
     get_content_optimized_comparison_config,
     to_content_type,
 )
-from sonido_sonar_tpu_torch.config.content_config import ContentAwareConfigManager  # noqa: F401
+from sonido_sonar_tpu_torch.config.content_config import (  # noqa: F401
+    ComparisonSettings,
+    ContentAwareConfigManager,
+    ContentSettings,
+    FeatureSettings,
+    get_content_configs,
+)

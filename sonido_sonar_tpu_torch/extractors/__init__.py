@@ -3,6 +3,20 @@
 extractor paths of the speech and music extractors, the factory, and
 the alignment extractor."""
 
+from sonido_sonar_tpu_torch.extractors.features import (  # noqa: F401
+    EnergyFeatures,
+    ExtractedFeatures,
+    HarmonicFeatures,
+    SpectralFeatures,
+    SpeechFeatures,
+    TemporalFeatures,
+)
+from sonido_sonar_tpu_torch.extractors.base import (  # noqa: F401
+    FeatureExtractorFactory,
+    create_extractor,
+)
+from sonido_sonar_tpu_torch.extractors.speech import SpeechFeatureExtractor  # noqa: F401
+from sonido_sonar_tpu_torch.extractors.music import MusicFeatureExtractor  # noqa: F401
 from sonido_sonar_tpu_torch.extractors.alignment import (  # noqa: F401
     AlignmentExtractor,
     AlignmentFeatures,

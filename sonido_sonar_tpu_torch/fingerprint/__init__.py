@@ -3,7 +3,10 @@
 bucketing. The comparator is not ported yet."""
 
 from sonido_sonar_tpu_torch.fingerprint.batching import AudioBucket, batch_audios  # noqa: F401
-from sonido_sonar_tpu_torch.fingerprint.content_detector import ContentDetector  # noqa: F401
+from sonido_sonar_tpu_torch.fingerprint.content_detector import (  # noqa: F401
+    AcousticFeatures,
+    ContentDetector,
+)
 from sonido_sonar_tpu_torch.fingerprint.generator import (  # noqa: F401
     AudioFingerprint,
     FingerprintBatch,

@@ -241,6 +241,10 @@ def batched_acoustic_features(pcm: torch.Tensor, sample_rate: int) -> torch.Tens
     )
 
 
+# JAX's name for the same function (fingerprint/content_detector.py:133)
+batched_acoustic_features_device = batched_acoustic_features
+
+
 class ContentDetector:
     """ContentDetector (content_detector.go:19-118). The batch path's
     feature pass runs on `device` for clips given as numpy (the card

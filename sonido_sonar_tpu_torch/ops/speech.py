@@ -121,8 +121,10 @@ class FormantResult:
     quality: torch.Tensor             # [...]
 
 
-def formant_confidence(amp, bw, max_amp):
-    """calculateFormantConfidence (format.go:274-301)."""
+def formant_confidence(freq, amp, bw, max_amp):
+    """calculateFormantConfidence (format.go:274-301): amplitude ratio
+    and narrow bandwidth raise confidence; `freq` is taken, as in JAX and
+    the reference, and not used."""
     amp_score = torch.where(max_amp > 0, amp / torch.clamp_min(max_amp, _EPS), 0.0)
     bw_score = torch.clamp(1.0 - bw / 1000.0, 0.0, 1.0)
     return 0.6 * amp_score + 0.4 * bw_score
@@ -178,7 +180,7 @@ def analyze_formants(
     left = torch.where(torch.isfinite(left), -left, idx_f[..., 0])
     right = torch.where(torch.isfinite(right), right, (n_bins - 1) - idx_f[..., 0])
     bw = (left + right) * freq_res
-    conf = formant_confidence(cand_amp, bw, maxv)
+    conf = formant_confidence(cand_freq, cand_amp, bw, maxv)
 
     # validation (format.go:303-329), then ascending frequency, invalid last
     valid = torch.isfinite(cand_amp) & (cand_freq >= 50.0) & (conf >= 0.2) & (bw > 0) & (bw <= 1000.0)
