@@ -13,10 +13,13 @@ Needs a CUDA card; inputs come from utils/parity.synth_pcm with seed 0.
 
     python3 tools/profile_torch.py --ablate-stft [NAME ...]
 
-times K1 and K10 (window 1024, hop 256) built from edited copies of
-csrc/stft.cu instead, one STFT_ABLATIONS entry each, all in one call on
-one card: each copy of the package builds into its own _build/ in a
-temporary directory and runs in its own process. A variant that drops a
+times K1 and K10 (B=128 x 30 s, 44.1 kHz, window 1024, hop 256) built
+from edited copies of csrc/stft.cu instead, one STFT_ABLATIONS entry
+each, all in one call on one card: each copy of the package builds into
+its own _build/ in a temporary directory and runs in its own process.
+It prints K1, K10 and their difference (the feature epilogue's time),
+registers and spills, K1 held to its plain version and K10's lanes to
+the plain epilogue on the kernel's own magnitudes. A variant that drops a
 part gives wrong outputs (its parity line says so) and measures only
 that part's share of the kernel's time; the others show what a design
 choice is worth.
@@ -73,6 +76,15 @@ STFT_ABLATIONS = {
     "drop_magnitude_stores": [(r"\n        out\[k\] = mg\[i\];", "")],
     "drop_passes_after_0": [(r"\n    fft_passes_from<kLog2N, 1>\(buf, twiddle, lane\);", "")],
     "drop_rolloff_search": [(r"__ballot_sync\(kFull, in_chunk && base \+ v >= thr\)", "0u")],
+    # K10's feature epilogue, part by part
+    "drop_weighted_sums": [(r"\n    for \(int j = fa\.row_ptr\[o\]; j < fa\.row_ptr\[o \+ 1\]; \+\+j\) "
+                            r"acc \+= fa\.weight\[j\] \* p\[fa\.bin\[j\]\];", "")],
+    "drop_descriptor_passes": [(r"(?s)\n  for \(int k = lane; k < f_bins; k \+= 32\) \{\n    const float mk"
+                                r".*?\n  \}(?=\n  psum = warp_sum)", ""),
+                               (r"\n  for \(int k = lane; k < f_bins; k \+= 32\) \{\n    const float d = "
+                                r"fa\.freq_logf\[k\]\.x - centroid;\n    bw \+= d \* d \* m\[k\];\n  \}", "")],
+    "drop_chroma_normalize": [(r"(?s)\n  if \(lane < kChroma\) \{\n    float total = 0\.f;.*?\n  \}\n\}",
+                               "\n}")],
 }
 
 # name -> regex edits of csrc/yin.cu (each must match exactly once)
@@ -260,6 +272,12 @@ host = lambda d: {k: v.cpu().numpy() for k, v in d.items()}
 _, failures = parity.check_stft_aux(mag.cpu().numpy(), host(aux), pmag.cpu().numpy(), host(paux),
                                     parity.near_zero_frames(x.cpu().numpy(), 1024, 256, 0.97))
 del mag, aux, pmag, paux
+mag, _, feat = H.stft_magnitude_hopper(x, 1024, 256, pre_emph=0.97, with_features=True,
+                                       sample_rate=44100)
+_, feat_failures = parity.check_feat(feat.cpu().numpy(),
+                                     H.frame_features(mag, 44100, 1024).cpu().numpy(),
+                                     same_magnitudes=True)
+del mag, feat
 def ms(fn, iters=10):
     fn()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -272,10 +290,12 @@ def ms(fn, iters=10):
 kw = dict(pre_emph=0.97, with_features=True, sample_rate=44100)
 k1 = [ms(lambda: H.stft_magnitude_hopper(x, 1024, 256, pre_emph=0.97)) for _ in range(2)]
 k10 = [ms(lambda: H.stft_magnitude_hopper(x, 1024, 256, **kw)) for _ in range(2)]
-print("K1 %.3f ms, K10 %.3f ms; " % (sum(k1) / 2, sum(k10) / 2)
+print("K1 %.3f ms, K10 %.3f ms, epilogue (K10 - K1) %.3f ms; "
+      % (sum(k1) / 2, sum(k10) / 2, (sum(k10) - sum(k1)) / 2)
       + ", ".join("%s %s registers, %s B spilled" % ("K10" if f == "1" else "K1", r, sp)
                   for f, sp, r in found)
-      + "; K1 parity " + ("ok" if not failures else "FAIL (" + failures[0] + ")"))
+      + "; K1 parity " + ("ok" if not failures else "FAIL (" + failures[0] + ")")
+      + "; K10 parity " + ("ok" if not feat_failures else "FAIL (" + feat_failures[0] + ")"))
 """
 
 
