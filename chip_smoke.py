@@ -23,7 +23,9 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
   6. the main path, batched_fingerprint_features, at B=128 x 30 s,
      44.1 kHz, window 1024, hop 256: shapes, finite values, kernel launch
      counts, step time and audio-hours per wall-hour
-  7. the main path at [2, 44100] on the card against the CPU
+  7. the main path at [2, 44100] on the card against the CPU, and at
+     16 kHz ([2, 16000]): ZCR by the exact gate (every frame away from
+     near-zero samples bit-equal)
   8. K1 and K2 against their plain versions, timed at the main path's shapes
   9. K2 with the period amplitude (voice quality: 1024/256, 50-500 Hz, on
      speech-pre-emphasized PCM) against its plain version, B=4 x 5 s and
@@ -46,7 +48,8 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
      K1 launched twice and K4 three times, shapes, finite values, step
      time; batched_speech_extractor_features at the same shape
  14. the generator (both routings) and the music program at [2, 44100]
-     on the card against the CPU, with utils/parity's gates
+     on the card against the CPU, with utils/parity's gates; the music
+     program also at 16 kHz ([2, 16000], ZCR by the exact gate)
  15. K2 with amplitude and K4 against their plain versions, timed
  16. one torch.profiler step each of the generator and the music paths:
      the device's busy share and its top kernels
@@ -95,10 +98,12 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
 Phases 23-27 run right after phase 8, while the B=128 x 30 s PCM is on
 the card:
  23. K10 (K1's feature epilogue) against its plain version, B=4 x 5 s and
-     B=128 x 30 s: magnitudes and aux bit-equal to the launch without
-     features; the lanes against the plain epilogue on the kernel's own
-     magnitudes (utils/parity.FEAT_SAME_MAGNITUDES), and at B=4 x 5 s
-     against the whole plain version (across the two DFTs)
+     B=128 x 30 s, and at 64/16 (44.1 kHz), 256/100 (16 kHz), 1024/255
+     and 2048/512 (44.1 kHz) on [3, sr + 777]: magnitudes and aux
+     bit-equal to the launch without features; feat bit-equal between
+     two launches; the lanes against the plain epilogue on the kernel's
+     own magnitudes (utils/parity.FEAT_SAME_MAGNITUDES), and at the small
+     shapes against the whole plain version (across the two DFTs)
  24. the main path in its feature-epilogue configuration
      (SONIDO_ENABLE_FEAT_EPILOGUE=1) at B=128 x 30 s: K10 launched, the
      default configuration's keys, shapes and dtypes, finite values,
@@ -111,8 +116,9 @@ the card:
      the tie and zero case exactly
  26. K3 at B=128 x 30 s, 1024/512, driven once as its public op, then
      against its plain version
- 27. K10, K9 and K3 against their plain versions, timed, and K1 against
-     torch.stft
+ 27. K10, K9 and K3 against their plain versions, timed; K1 and K10 in
+     turns (K1, K10, K10, K1) with their difference, the feature
+     epilogue's time; and K1 against torch.stft
 
 The second-to-last line is {"kernels": [...]}: for each kernel its
 launches on its path, its largest error against its plain version, its
@@ -788,33 +794,43 @@ def run_features(card: str, dev: torch.device, full: torch.Tensor, small: torch.
     feat_kw = dict(pre_emph=PRE_EMPH, with_features=True, sample_rate=SR)
     res = {}
 
-    def hold_k10(x, across_dfts: bool):                       # phase 23
+    def hold_k10(x, across_dfts: bool, w=WINDOW, hop=HOP, sr=SR):      # phase 23
         """The epilogue against its plain version on the kernel's own
         magnitudes (K1's are held to their plain version in phase 4 and
-        must equal the launch without features); with `across_dfts`, the
-        whole plain version too. Flatness and slope take logs of every bin
-        above 1e-10, so across two DFTs a frame's few smallest bins move
-        them: at 128 x 30 s one frame in 661k missed the whole-path bound
-        of utils/parity (flatness 0.2244 against 0.2171), so the whole
-        plain version is held at the small size only."""
-        what = f"K10 vs plain, {tuple(x.shape)}"
-        mag, aux, feat = k1(x, WINDOW, HOP, **feat_kw)
-        mag0, aux0 = k1(x, WINDOW, HOP, pre_emph=PRE_EMPH)
+        must equal the launch without features), and two launches
+        bit-equal (no atomics: the partial sums' order is fixed); with
+        `across_dfts`, the whole plain version too. Flatness and slope
+        take logs of every bin above 1e-10, so across two DFTs a frame's
+        few smallest bins move them: at 128 x 30 s one frame in 661k
+        missed the whole-path bound of utils/parity (flatness 0.2244
+        against 0.2171), so the whole plain version is held at the small
+        sizes only."""
+        what = f"K10 vs plain, {tuple(x.shape)}, {w}/{hop} at {sr} Hz"
+        kw = dict(pre_emph=PRE_EMPH, with_features=True, sample_rate=sr)
+        mag, aux, feat = k1(x, w, hop, **kw)
+        mag0, aux0 = k1(x, w, hop, pre_emph=PRE_EMPH)
+        again = k1(x, w, hop, **kw)[2]
         torch.cuda.synchronize()
         if not (torch.equal(mag, mag0) and all(torch.equal(aux[k], aux0[k]) for k in aux0)):
             raise AssertionError(f"{what}: magnitudes or aux differ from the launch without features")
-        same = hopper_stft.frame_features(mag, SR, WINDOW)
+        if not torch.equal(feat, again):
+            raise AssertionError(f"{what}: two launches gave different feat bits")
+        del again
+        same = hopper_stft.frame_features(mag, sr, w)
         e = require(parity.check_feat(np32(feat), np32(same), same_magnitudes=True),
                     what + ", on the kernel's magnitudes")
         del same
         if across_dfts:
-            pfeat = k1_plain(x, WINDOW, HOP, **feat_kw)[2]
+            pfeat = k1_plain(x, w, hop, **kw)[2]
             require(parity.check_feat(np32(feat), np32(pfeat), same_magnitudes=False),
                     what + ", across the two DFTs")
-        log(f"[{what}] magnitudes and aux bit-equal to the launch without features")
+        log(f"[{what}] magnitudes and aux bit-equal to the launch without features, "
+            f"feat bit-equal between two launches")
         return e
 
     hold_k10(small, across_dfts=True)
+    for w, hop, sr in ((64, 16, SR), (256, 100, 16000), (1024, 255, SR), (2048, 512, SR)):
+        hold_k10(parity.synth_pcm(3, sr + 777, SEED + 3, sr, dev), True, w, hop, sr)
     res["K10_err"] = max(hold_k10(full, across_dfts=False).values())
     torch.cuda.empty_cache()
 
@@ -905,9 +921,13 @@ def run_features(card: str, dev: torch.device, full: torch.Tensor, small: torch.
     res["K9_shape"] = tuple(mag.shape)
     del peak, valley, ppeak, pvalley
 
-    # phase 27 (K10 and K1 against torch.stft) while the magnitudes' input is here
+    # phase 27 (K10, K1 and K1 against torch.stft) while the magnitudes' input is here
     res["K10_times"] = in_turns(lambda: k1(full, WINDOW, HOP, **feat_kw),
                                 lambda: k1_plain(full, WINDOW, HOP, **feat_kw), 10)
+    k10_ms, k1_ms = in_turns(lambda: k1(full, WINDOW, HOP, **feat_kw),
+                             lambda: k1(full, WINDOW, HOP, pre_emph=PRE_EMPH), 30)
+    log(f"K10 {k10_ms:.4f} ms, K1 {k1_ms:.4f} ms in turns (K1, K10, K10, K1): the feature "
+        f"epilogue {k10_ms - k1_ms:.4f} ms at {tuple(full.shape)}, {WINDOW}/{HOP} [{card}]")
     xp = pre_emphasis(full, PRE_EMPH)
     hann = device_table(make_window, (WindowType.HANN, WINDOW), dev)
 
@@ -1113,6 +1133,17 @@ def main() -> int:
         {k: np32(v) for k, v in on_card.items()}, {k: v.numpy() for k, v in on_cpu.items()},
         near2, SR, WINDOW,
     ), "main path [2, 44100], card vs CPU")
+    pcm16 = parity.synth_pcm(2, 16000, SEED + 3, 16000)
+    on_card = batched_fingerprint_features(pcm16.to(dev), sample_rate=16000)
+    on_cpu = batched_fingerprint_features(pcm16, sample_rate=16000)
+    near16 = parity.near_zero_frames(pcm16.numpy(), WINDOW, HOP, PRE_EMPH)
+    require(parity.check_features(
+        {k: np32(v) for k, v in on_card.items()}, {k: v.numpy() for k, v in on_cpu.items()},
+        near16, 16000, WINDOW,
+    ), "main path [2, 16000] at 16 kHz, card vs CPU (ZCR exact)")
+    log(f"[main path at 16 kHz] ZCR bit-equal on "
+        f"{int((np32(on_card['zcr']) == on_cpu['zcr'].numpy()).sum())} of {near16.size} frames "
+        f"({int(near16.sum())} exempt: a sample near 0)")
 
     times = {}                                                # phase 8
     for name, kern, plain, args in (
@@ -1294,6 +1325,15 @@ def main() -> int:
                     f"generator {label} (strict={strict}) [2, {SR}] row {i}, card vs CPU")
     mus_card = {k: np32(v) for k, v in batched_music_extractor_features(small_clips.to(dev)).items()}
     mus_cpu = {k: v.numpy() for k, v in batched_music_extractor_features(small_clips).items()}
+    clips16 = parity.harmonic_clips(2, 16000, SEED + 8, 16000)
+    mus16_card = {k: np32(v) for k, v in batched_music_extractor_features(clips16.to(dev), 16000).items()}
+    mus16_cpu = {k: v.numpy() for k, v in batched_music_extractor_features(clips16, 16000).items()}
+    require(parity.check_extracted(mus16_card, mus16_cpu, 16000, WINDOW,
+                                   near_zero=near_zero_for(clips16, True), n_samples=16000,
+                                   chord_margin=chord_margin(mus16_cpu["chroma"])),
+            "music program [2, 16000] at 16 kHz, card vs CPU (ZCR exact)")
+    log(f"[music program at 16 kHz] ZCR bit-equal on "
+        f"{int((mus16_card['zcr'] == mus16_cpu['zcr']).sum())} of {mus16_cpu['zcr'].size} frames")
     require(parity.check_extracted(mus_card, mus_cpu, SR, WINDOW, near_zero=near_zero_for(small_clips, True),
                                    n_samples=SR, chord_margin=chord_margin(mus_cpu["chroma"])),
             f"music program [2, {SR}], card vs CPU")

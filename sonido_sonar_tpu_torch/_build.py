@@ -51,9 +51,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     # sig, window, twiddle, mag, aux, batch, n, frames, window, hop, pre_emph, stream
     "sonido_stft_aux": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    # sig, window, twiddle, mag, aux, feat, row_ptr, bin, weight, freq_logf,
+    # sig, window, twiddle, mag, aux, feat, row_ptr, entries, freq_logf,
     # batch, n, frames, window, hop, pre_emph, stream
-    "sonido_stft_features": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "sonido_stft_features": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # window, hop, features, smem bytes (out), blocks per SM (out)
     "sonido_stft_occupancy": (_I, _I, _I, _P, _P),
     # sig, twiddle, pitch, conf, amp (nullable), batch, n, frames, window,

@@ -50,19 +50,49 @@
 //
 // K10, the feature epilogue (sonido_stft_features): replaces the
 // with_features=True epilogue of the same TPU kernel (pallas_stft.py
-// :334-417). After the aux epilogue, on the frame's power and magnitudes
-// still in the warp's buffer, the same warp writes feat [B, T, 43]: 26 mel
-// energies and the 12-class chroma fold of the power (each a weighted sum
-// over a compressed sparse row table from the host: a mel filter is a run
-// of bins, a bin folds into at most one chroma class, so ~2F products per
-// frame instead of the TPU's dense [F, 64] matmuls), the chroma
-// normalized to unit sum, and the descriptor bundle's centroid,
-// bandwidth (its second pass over (f - centroid)^2 m, not the TPU's
-// moment expansion), flatness, crest and slope, finished per frame as
-// ops/spectral.frame_descriptors finishes them. All fp32; the TPU's bf16
-// hi/lo tiers existed for its MXU and have no counterpart. The K1 launch
-// (sonido_stft_aux) is the same template without the epilogue, one FFT
-// core for both, so its magnitudes and aux bits are the same.
+// :334-417). The same warp writes feat [B, T, 43]: 26 mel energies and the
+// 12-class chroma fold of the power (each a weighted sum over a sparse
+// table from the host: a mel filter is a run of bins, a bin folds into at
+// most one chroma class, so ~2F products per frame instead of the TPU's
+// dense [F, 64] matmuls), the chroma normalized to unit sum, and the
+// descriptor bundle's centroid, bandwidth (its second pass over
+// (f - centroid)^2 m, not the TPU's moment expansion), flatness, crest and
+// slope, finished per frame as ops/spectral.frame_descriptors finishes
+// them. All fp32; the TPU's bf16 hi/lo tiers existed for its MXU and have
+// no counterpart. The K1 launch (sonido_stft_aux) is the same template
+// without the epilogue, one FFT core for both, so its magnitudes and aux
+// bits are the same.
+//
+// What bounds K10: like K1, instruction issue, not bytes (the feat lanes
+// add 0.11 GB to K1's 2.05 GB at B=128 x 30 s); its epilogue runs about as
+// many instructions per frame as K1's transform. The parent design spent
+// two thirds of K10 (3.5 of 5.2 ms on an H100) in the epilogue, most of it
+// in the 38 weighted sums run one lane per row: the warp waited on the
+// 119-entry mel row while the chroma lanes idled. So:
+//   - The sums are load-balanced: the table's nnz entries (1,117 at
+//     1024 / 44.1 kHz) are cut into 32 contiguous segments of floor or
+//     ceil nnz / 32, one per lane (sums_plan, built once per block). A
+//     lane walks its segment in table order with one running sum, reading
+//     each entry (bin, row, weight) with one 8-byte load from a table the
+//     host interleaves by lane (each warp load one 256-byte run), four
+//     entries and their powers loaded before any is added, and at each
+//     change of row stores its partial at warp slot lane + row; a lane per
+//     row then adds that row's consecutive slots in lane order. No
+//     atomics: the order is fixed, so two launches give the same bits
+//     (ops/hopper_stft.feature_sums_model replays it in numpy). Not the
+//     prefix-sum form of the triangles (differences of running sums of p
+//     and p f): it cancels on high mel bands after loud low bins, and MFCC
+//     takes the log of these values.
+//   - The descriptors' sums are taken in the split loop, where each lane
+//     holds its bins' power and magnitude in registers, instead of two
+//     more passes over the frame in shared memory, with log2 m from one
+//     MUFU op; eight of them are reduced by one transposed reduction (9
+//     shuffles, one sum per lane), the counts and the maximum by one
+//     warp-reduce instruction each. The bandwidth keeps its second pass,
+//     over the magnitudes in shared memory.
+//   - The chroma total is one warp sum over the 12 rows' lanes.
+// The parts' times and the variants tried are in PERF.md (section 6,
+// tools/profile_torch.py --ablate-stft).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,7 +114,9 @@ constexpr int kMel = 26;                  // feat lanes 0-25
 constexpr int kChroma = 12;               // feat lanes 26-37
 constexpr int kSums = kMel + kChroma;     // rows of the sparse table
 constexpr int kFeatLanes = kSums + 5;     // + centroid, bandwidth, flatness, crest, slope
-constexpr float kInvLn10 = 0.43429448190325176f;
+constexpr int kSlots = 32 + kSums;        // warp scratch of the sums' partials: lane l, row r at l + r
+constexpr int kWalkStep = 4;              // table entries a lane loads together
+constexpr float kLog10Of2 = 0.30102999566398120f;
 
 // sqrt.approx (one MUFU op) for the magnitudes: the IEEE-rounded sqrtf's
 // refinement costs 11 % of K1's time at W = 1024 (tools/profile_torch.py
@@ -144,19 +176,21 @@ __device__ __forceinline__ void fft_first_pass(const float* fr, bool even,
   }
 }
 
-// Shared-memory layout, in floats: the staged samples, then one buffer per
-// warp (the frame's N complex points; after the split its power [F] and,
-// for the feature epilogue, its magnitudes [F] and 12 chroma sums).
+// Shared-memory layout, in floats: the staged samples; for the feature
+// epilogue the weighted sums' plan (sums_plan, one int2 per lane); then one
+// buffer per warp (the frame's N complex points; after the split its power
+// [F] and, for the feature epilogue, its magnitudes [F] and kSlots partial
+// sums).
 struct Layout {
-  int tile, sig, warp_buf, total;
+  int tile, sig, plan, warp_buf, total;
   __host__ __device__ Layout(int w, int hop, bool features) {
     const int half = w / 2, f_bins = half + 1;
     const int fit = (kSigCap - w) / hop + 1;  // w <= 2048 < kSigCap, so fit >= 1
     tile = fit < kTileMax ? fit : kTileMax;
     sig = ((tile - 1) * hop + w + 3) & ~3;
-    const int feat_buf = 2 * f_bins + kChroma > 2 * half ? 2 * f_bins + kChroma : 2 * half;
-    warp_buf = (features ? feat_buf + 3 : 2 * half) & ~3;
-    total = sig + kWarps * warp_buf;
+    plan = features ? 2 * 32 : 0;
+    warp_buf = features ? (2 * f_bins + kSlots + 3) & ~3 : 2 * half;
+    total = sig + plan + kWarps * warp_buf;
   }
 };
 
@@ -164,88 +198,183 @@ struct Layout {
 struct FeatArgs {
   float* feat;                 // [B, T, kFeatLanes]
   const int* row_ptr;          // [kSums + 1]
-  const int* bin;              // [nnz]
-  const float* weight;         // [nnz]
+  const int2* entries;         // [S, 32]: lane l's t-th entry (bin | row << 16, weight's bits) at t * 32 + l
   const float2* freq_logf;     // [F]: (f, log10 f or 0 at f = 0)
 };
 
-// K10's per-frame epilogue, by the frame's warp: p and m are the frame's
-// power and magnitudes [F] in its buffer, chroma 12 floats of scratch.
-__device__ __forceinline__ void feature_epilogue(const FeatArgs& fa, const float* p,
-                                                 const float* m, float* chroma, int f_bins,
-                                                 size_t frame, int lane) {
-  float psum = 0.f, msum = 0.f, fmsum = 0.f, mmax = 0.f, cnt = 0.f, lsum = 0.f;
-  float ns = 0.f, sx = 0.f, sxx = 0.f, sy = 0.f, sxy = 0.f;
-  for (int k = lane; k < f_bins; k += 32) {
-    const float mk = m[k];
-    const float2 fl = fa.freq_logf[k];
-    psum += p[k];
-    msum += mk;
-    fmsum += mk * fl.x;
-    mmax = fmaxf(mmax, mk);
-    if (mk > kEps) {  // flatness: ln m over bins above the threshold
-      const float lm = logf(mk);
-      cnt += 1.f;
+// The weighted sums' plan of one lane, the same for every warp and frame:
+// the table's nnz entries, in row order, cut into 32 contiguous segments
+// of floor or ceil nnz / 32, lane l's [l nnz / 32, (l + 1) nnz / 32), so
+// entry e is lane (32 e + 31) / nnz's. The host stores the segments
+// interleaved (lane l's t-th entry at t * 32 + l), so the warp's t-th
+// loads are one contiguous 256-byte run, each padded to kWalkStep * ceil(
+// ceil(nnz / 32) / kWalkStep) entries with no-ops (weight 0 on the lane's
+// last row). x is the padded count for a lane with entries, else 0; y
+// the first slot and count of the partials of row `lane` (bits 0-7, 8-15)
+// and of row lane + 32 (bits 16-23, 24-31). Lane l's partial of row r
+// goes to slot l + r: the rows a lane touches rise with the lane, so no
+// two partials share a slot, and row r's partials are the consecutive
+// slots l + r for the lanes l of its first and last entries and those
+// between (none for an empty row). ops/hopper_stft.feature_plan and
+// feature_entries are the same plan and layout in numpy.
+__device__ __forceinline__ int2 sums_plan(const int* __restrict__ rp, int lane) {
+  const int nnz = rp[kSums];
+  const int div = max(nnz, 1);
+  auto row = [&](int r) {
+    const int a = rp[r], b = rp[r + 1];
+    const int lo = (32 * a + 31) / div;
+    return (lo + r) | ((b > a ? (32 * (b - 1) + 31) / div - lo + 1 : 0) << 8);
+  };
+  const int second = lane < kSums - 32 ? row(lane + 32) : 0;
+  const int steps = ((nnz + 31) / 32 + kWalkStep - 1) / kWalkStep * kWalkStep;
+  const bool any = (lane + 1) * nnz / 32 > lane * nnz / 32;
+  return make_int2(any ? steps : 0, row(lane) | (second << 16));
+}
+
+// log2 of a magnitude above kEps, for flatness and slope: one MUFU op;
+// ln m and log10 m are it times constants, folded into the sums' finish.
+__device__ __forceinline__ float log2_mag(float x) { return __log2f(x); }
+
+// The descriptors' finishing arithmetic, IEEE-rounded as in the plain
+// version.
+__device__ __forceinline__ float finish_div(float a, float b) { return a / b; }
+__device__ __forceinline__ float finish_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ float finish_exp2(float x) { return exp2f(x); }
+
+// One lane's share of the descriptor sums, taken where the split holds the
+// frame's bins k = lane + 32 i in registers.
+struct Descriptors {
+  float psum = 0.f, msum = 0.f, fmsum = 0.f, lsum = 0.f;  // lsum: sum of log2 m
+  float sx = 0.f, sxx = 0.f, sxl = 0.f, l0 = 0.f;  // sxl: sum of log2 m * log10 f; l0: log2 m at bin 0
+  float mmax = 0.f;
+  int cnt = 0;  // bins above kEps, + 65536 when bin 0 is one of them
+  __device__ __forceinline__ void add(float m, float p, float2 fl, bool bin0) {
+    psum += p;
+    msum += m;
+    fmsum += m * fl.x;
+    mmax = fmaxf(mmax, m);
+    if (m > kEps) {  // flatness: log m over bins above the threshold; slope: f > 0 too,
+      const float lm = log2_mag(m);  // and log10 f is 0 at bin 0, so only its y needs taking out
+      cnt += bin0 ? 65537 : 1;
       lsum += lm;
-      if (fl.x > 0.f) {  // slope: log10 m on log10 f, f > 0 too
-        const float y = lm * kInvLn10;
-        ns += 1.f;
-        sx += fl.y;
-        sxx += fl.y * fl.y;
-        sy += y;
-        sxy += y * fl.y;
-      }
+      if (bin0) l0 = lm;
+      sx += fl.y;
+      sxx += fl.y * fl.y;
+      sxl += lm * fl.y;
     }
   }
-  psum = warp_sum(psum);
-  msum = warp_sum(msum);
-  fmsum = warp_sum(fmsum);
-  cnt = warp_sum(cnt);
-  lsum = warp_sum(lsum);
-  ns = warp_sum(ns);
-  sx = warp_sum(sx);
-  sxx = warp_sum(sxx);
-  sy = warp_sum(sy);
-  sxy = warp_sum(sxy);
-  for (int o = 16; o > 0; o >>= 1) mmax = fmaxf(mmax, __shfl_xor_sync(kFull, mmax, o));
-  const float centroid = msum > 0.f ? fmsum / fmaxf(msum, kEps) : 0.f;
+};
+
+// v[0..7] of every lane -> the warp's sum of v[(lane >> 2) & 7], in this
+// lane: three exchange rounds that each halve the values a lane keeps
+// (offsets 16, 8, 4), then two butterfly rounds: 9 shuffles for 8 sums.
+__device__ __forceinline__ float transpose_sum8(const float (&v)[8], int lane) {
+  const bool u4 = lane & 16, u3 = lane & 8, u2 = lane & 4;
+  float a[4], b[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = (u4 ? v[i + 4] : v[i]) + __shfl_xor_sync(kFull, u4 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    b[i] = (u3 ? a[i + 2] : a[i]) + __shfl_xor_sync(kFull, u3 ? a[i] : a[i + 2], 8);
+  float c = (u2 ? b[1] : b[0]) + __shfl_xor_sync(kFull, u2 ? b[0] : b[1], 4);
+  c += __shfl_xor_sync(kFull, c, 2);
+  return c + __shfl_xor_sync(kFull, c, 1);
+}
+
+// K10's per-frame epilogue, by the frame's warp: d the lane's descriptor
+// sums, p and m the frame's power and magnitudes [F] in its buffer, slots
+// kSlots floats of scratch, plan this lane's SumsPlan.
+__device__ __forceinline__ void feature_epilogue(const FeatArgs& fa, const Descriptors& d,
+                                                 const float* __restrict__ p,
+                                                 const float* __restrict__ m,
+                                                 float* __restrict__ slots, int2 plan, int f_bins,
+                                                 size_t frame, int lane) {
+  // the descriptors: value i of the lane's sums ends in lanes 4i..4i+3
+  const float v[8] = {d.psum, d.msum, d.fmsum, d.lsum, d.sx, d.sxx, d.sxl, d.l0};
+  const float part = transpose_sum8(v, lane);
+  const int cnt_all = __reduce_add_sync(kFull, d.cnt);
+  const float mmax = __uint_as_float(__reduce_max_sync(kFull, __float_as_uint(d.mmax)));  // m >= 0
+  const float msum = __shfl_sync(kFull, part, 4);
+  const float fmsum = __shfl_sync(kFull, part, 8);
+  const float centroid = msum > 0.f ? finish_div(fmsum, fmaxf(msum, kEps)) : 0.f;
   float bw = 0.f;  // second pass: sum (f - centroid)^2 m
   for (int k = lane; k < f_bins; k += 32) {
-    const float d = fa.freq_logf[k].x - centroid;
-    bw += d * d * m[k];
+    const float dk = __ldg(&fa.freq_logf[k].x) - centroid;
+    bw += dk * dk * m[k];
   }
   bw = warp_sum(bw);
+  const float lsum = __shfl_sync(kFull, part, 12);
+  const float sx = __shfl_sync(kFull, part, 16);
+  const float sxx = __shfl_sync(kFull, part, 20);
+  const float sxl = __shfl_sync(kFull, part, 24);
+  const float l0 = __shfl_sync(kFull, part, 28);
   float* out = fa.feat + frame * kFeatLanes;
-  if (lane == 0) {
+  if (lane == 0) {  // finish the five as frame_descriptors finishes them
+    const float cnt = (float)(cnt_all & 0xffff), ns = cnt - (float)(cnt_all >> 16);
+    const float sy = (lsum - l0) * kLog10Of2, sxy = sxl * kLog10Of2;  // log10 m = log2 m log10 2
     const float nb = (float)f_bins;
-    const float arith = msum / nb;
-    const float geo = expf(lsum / fmaxf(cnt, 1.f));
-    const float rms = sqrtf(psum / nb);
+    const float arith = finish_div(msum, nb);
+    const float geo = finish_exp2(finish_div(lsum, fmaxf(cnt, 1.f)));
+    const float rms = finish_sqrt(finish_div(part, nb));  // part: the power sum in lane 0
     const float den = ns * sxx - sx * sx;
     out[kSums] = centroid;
-    out[kSums + 1] = msum > 0.f ? sqrtf(bw / fmaxf(msum, kEps)) : 0.f;
-    out[kSums + 2] = (cnt > 0.f && arith > kEps) ? geo / fmaxf(arith, kEps) : 0.f;
-    out[kSums + 3] = rms > 0.f ? mmax / fmaxf(rms, kEps) : 0.f;
-    out[kSums + 4] = (ns >= 2.f && fabsf(den) > kEps) ? (ns * sxy - sx * sy) / den : 0.f;
+    out[kSums + 1] = msum > 0.f ? finish_sqrt(finish_div(bw, fmaxf(msum, kEps))) : 0.f;
+    out[kSums + 2] = (cnt > 0.f && arith > kEps) ? finish_div(geo, fmaxf(arith, kEps)) : 0.f;
+    out[kSums + 3] = rms > 0.f ? finish_div(mmax, fmaxf(rms, kEps)) : 0.f;
+    out[kSums + 4] = (ns >= 2.f && fabsf(den) > kEps) ? finish_div(ns * sxy - sx * sy, den) : 0.f;
   }
-  // the 38 weighted sums of the power, one lane each
-  for (int o = lane; o < kSums; o += 32) {
+
+  // the 38 weighted sums of the power: each lane walks its segment of the
+  // table in order with one running sum, storing it at each row change;
+  // kWalkStep entries and their powers are loaded before any of them is
+  // added, the next step's entries while this step adds
+  const unsigned rows = plan.y;
+  if (plan.x > 0) {
+    const int2* col = fa.entries + lane;
+    int2 next[kWalkStep];
+#pragma unroll
+    for (int u = 0; u < kWalkStep; ++u) next[u] = __ldg(col + 32 * u);
+    int cur = next[0].x >> 16;
     float acc = 0.f;
-    for (int j = fa.row_ptr[o]; j < fa.row_ptr[o + 1]; ++j) acc += fa.weight[j] * p[fa.bin[j]];
-    if (o < kMel) {
-      out[o] = acc;
-    } else {
-      chroma[o - kMel] = acc;
+    for (int t = 0; t < plan.x; t += kWalkStep) {
+      int2 en[kWalkStep];
+      float pv[kWalkStep];
+#pragma unroll
+      for (int u = 0; u < kWalkStep; ++u) {
+        en[u] = next[u];
+        pv[u] = p[en[u].x & 0xffff];
+      }
+      if (t + kWalkStep < plan.x) {
+#pragma unroll
+        for (int u = 0; u < kWalkStep; ++u) next[u] = __ldg(col + 32 * (t + kWalkStep + u));
+      }
+#pragma unroll
+      for (int u = 0; u < kWalkStep; ++u) {
+        const int row = en[u].x >> 16;
+        if (row != cur) {
+          slots[lane + cur] = acc;
+          acc = 0.f;
+          cur = row;
+        }
+        acc += __int_as_float(en[u].y) * pv[u];
+      }
     }
+    slots[lane + cur] = acc;
   }
   __syncwarp();
-  // unit-sum chroma (pallas_stft.py:405-409)
-  if (lane < kChroma) {
-    float total = 0.f;
-    for (int j = 0; j < kChroma; ++j) total += chroma[j];
-    const float e = chroma[lane];
-    out[kMel + lane] = total > kEps ? e / fmaxf(total, kEps) : e;
-  }
+  // rows lane and lane + 32: their partials in lane order
+  float v0 = 0.f, v1 = 0.f;
+#pragma unroll 1
+  for (int t = 0, n = (rows >> 8) & 0xff; t < n; ++t) v0 += slots[(rows & 0xff) + t];
+#pragma unroll 1
+  for (int t = 0, n = rows >> 24; t < n; ++t) v1 += slots[((rows >> 16) & 0xff) + t];
+  // unit-sum chroma (pallas_stft.py:405-409): rows 26-37 are lanes 26-31's
+  // first and lanes 0-5's second
+  const float total = warp_sum((lane >= kMel ? v0 : 0.f) + v1);
+  auto norm = [&](float e) { return total > kEps ? e / fmaxf(total, kEps) : e; };
+  out[lane] = lane < kMel ? v0 : norm(v0);
+  if (lane < kSums - 32) out[32 + lane] = norm(v1);
 }
 
 // Resident blocks per SM the registers must leave room for: at W <= 1024
@@ -287,10 +416,14 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kLog2N)) stft_aux_kernel(
     }
     s_sig[i] = v;
   }
+  if constexpr (kFeatures) {
+    if (threadIdx.x < 32)
+      reinterpret_cast<int2*>(smem + L.sig)[threadIdx.x] = sums_plan(fa.row_ptr, threadIdx.x);
+  }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* wbuf = smem + L.sig + warp * L.warp_buf;
+  float* wbuf = smem + L.sig + L.plan + warp * L.warp_buf;
   float2* buf = reinterpret_cast<float2*>(wbuf);
   const float2* win2 = reinterpret_cast<const float2*>(window);
   const size_t plane = (size_t)batch * t_frames;
@@ -309,8 +442,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kLog2N)) stft_aux_kernel(
 
     // 2. real-FFT split for bins k = lane + 32 i: 2 X[k] = A + W^k (-i B) with
     //    A = Z[k] + conj Z[N-k], B = Z[k] - conj Z[N-k]
+    //    (with features, the lane's descriptor sums over the same bins)
     float pw[kRounds], mg[kRounds];
     float* out = mag + frame * F;
+    [[maybe_unused]] Descriptors desc;
 #pragma unroll
     for (int i = 0; i < kRounds; ++i) {
       const int k = lane + 32 * i;
@@ -323,11 +458,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kLog2N)) stft_aux_kernel(
         mg[i] = 0.5f * sqrt_approx(re * re + im * im);
         pw[i] = mg[i] * mg[i];
         out[k] = mg[i];
+        if constexpr (kFeatures) desc.add(mg[i], pw[i], __ldg(fa.freq_logf + k), k == 0);
       }
     }
     __syncwarp();
     float* s_pow = wbuf;        // [F], the complex points are dead
-    float* s_mag = wbuf + F;    // [F], feature epilogue only
+    float* s_mag = wbuf + F;    // [F], feature epilogue only (the bandwidth's pass)
 #pragma unroll
     for (int i = 0; i < kRounds; ++i) {
       const int k = lane + 32 * i;
@@ -389,7 +525,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kLog2N)) stft_aux_kernel(
     }
 
     // 4. feature epilogue (K10) on the same buffer
-    if constexpr (kFeatures) feature_epilogue(fa, s_pow, s_mag, wbuf + 2 * F, F, frame, lane);
+    if constexpr (kFeatures) {
+      const int2 plan = reinterpret_cast<const int2*>(smem + L.sig)[lane];
+      feature_epilogue(fa, desc, s_pow, s_mag, wbuf + 2 * F, plan, F, frame, lane);
+    }
     __syncwarp();  // the buffer is reused by the warp's next frame
   }
 }
@@ -458,14 +597,16 @@ extern "C" int sonido_stft_aux(const float* sig, const float* window, const floa
 }
 
 // Launch K1 with the K10 feature epilogue: feat [B, T, 43] besides the
-// same magnitudes and aux planes; row_ptr [39], bin and weight [nnz] and
-// freq_logf [F, 2] as ops/hopper_stft.feature_tables builds them.
+// same magnitudes and aux planes; row_ptr [39] and freq_logf [F, 2] as
+// ops/hopper_stft.feature_tables builds them, entries [S, 32, 2] int32 as
+// ops/hopper_stft.feature_entries packs and interleaves its bins and
+// weights.
 extern "C" int sonido_stft_features(const float* sig, const float* window, const float* twiddle,
                                     float* mag, float* aux, float* feat, const int* row_ptr,
-                                    const int* bin, const float* weight, const float* freq_logf,
-                                    int batch, int n, int t_frames, int w, int hop,
-                                    float pre_emph, void* stream) {
-  const FeatArgs fa{feat, row_ptr, bin, weight, reinterpret_cast<const float2*>(freq_logf)};
+                                    const int* entries, const float* freq_logf, int batch, int n,
+                                    int t_frames, int w, int hop, float pre_emph, void* stream) {
+  const FeatArgs fa{feat, row_ptr, reinterpret_cast<const int2*>(entries),
+                    reinterpret_cast<const float2*>(freq_logf)};
   return launch_stft<true>(sig, window, twiddle, mag, aux, fa, batch, n, t_frames, w, hop,
                            pre_emph, stream);
 }

@@ -61,6 +61,7 @@ FEAT_LANES = {
 }
 N_FEAT = 43
 _N_MEL = 26
+_N_SUMS = 38  # mel and chroma rows of the sparse table
 _EPS = 1e-10
 _ROLLOFF = 0.85
 
@@ -183,10 +184,101 @@ def feature_tables(f_bins: int, sample_rate: int, window_size: int) -> Tuple[np.
     return row_ptr, bins, weights, np.ascontiguousarray(freq_logf)
 
 
+N_SLOTS = 32 + _N_SUMS  # the warp's scratch slots of the weighted sums' partials
+WALK_STEP = 4  # table entries a lane loads together (csrc/stft.cu kWalkStep)
+
+
+def feature_plan(row_ptr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """K10's plan for the 38 weighted sums (csrc/stft.cu sums_plan): the
+    table's nnz entries cut into 32 contiguous segments of floor or ceil
+    nnz / 32, lane l's [l nnz // 32, (l + 1) nnz // 32) -> (segments
+    [32, 2]: lane l walks entries [start, end)), and (rows [38, 2]: row
+    r's partials are the slots first .. first + count - 1). Lane l's
+    partial of row r sits at slot l + r; entry e is lane (32 e + 31) //
+    nnz's, so row r's lanes run from its first entry's to its last's,
+    none for an empty row."""
+    row_ptr = np.asarray(row_ptr, np.int64)
+    nnz = int(row_ptr[-1])
+    lanes = np.arange(33)
+    bounds = lanes * nnz // 32
+    segments = np.stack([bounds[:-1], bounds[1:]], axis=1)
+    div = max(nnz, 1)
+    lo = (32 * row_ptr[:-1] + 31) // div
+    hi = (32 * (row_ptr[1:] - 1) + 31) // div
+    count = np.where(row_ptr[1:] > row_ptr[:-1], hi - lo + 1, 0)
+    return segments, np.stack([lo + np.arange(_N_SUMS), count], axis=1)
+
+
+def feature_sums_model(power: np.ndarray, row_ptr: np.ndarray, entries: np.ndarray) -> np.ndarray:
+    """numpy model of K10's weighted sums in the kernel's order: [..., F]
+    power -> [..., 38] (mel energies, then the unit-sum chroma), float32.
+    `entries` is `feature_entries`' table. Each lane walks its segment of
+    `feature_plan` with one running sum (acc += w * p[bin], one rounding
+    as the kernel's fused multiply-add nearly gives), storing it at slot
+    lane + row at each row change; row
+    r adds its slots in lane order; the chroma total is the warp's
+    butterfly sum over lanes (xor 16, 8, 4, 2, 1) of row `lane` for lanes
+    26-31 plus row lane + 32 for lanes 0-5."""
+    p = np.asarray(power, np.float32)
+    segments, rows = feature_plan(row_ptr)
+    bins = entries[..., 0] & 0xFFFF
+    row_of = entries[..., 0] >> 16
+    w = entries[..., 1].view(np.float32).astype(np.float64)
+    slots = np.zeros(p.shape[:-1] + (N_SLOTS,), np.float32)
+    for lane, (j0, j1) in enumerate(segments):
+        acc, cur = np.zeros(p.shape[:-1], np.float32), None
+        for t in range(len(entries) if j1 > j0 else 0):  # the no-op pads too
+            if row_of[t, lane] != cur:
+                if cur is not None:
+                    slots[..., lane + cur] = acc
+                acc, cur = np.zeros_like(acc), int(row_of[t, lane])
+            acc = (w[t, lane] * p[..., bins[t, lane]].astype(np.float64) + acc).astype(np.float32)
+        if cur is not None:
+            slots[..., lane + cur] = acc
+    sums = np.zeros(p.shape[:-1] + (_N_SUMS,), np.float32)
+    for r, (first, count) in enumerate(rows):
+        for t in range(count):
+            sums[..., r] = sums[..., r] + slots[..., first + t]
+    lanes = np.zeros(p.shape[:-1] + (32,), np.float32)
+    lanes[..., _N_MEL:32] = sums[..., _N_MEL:32]
+    lanes[..., : _N_SUMS - 32] += sums[..., 32:]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., np.arange(32) ^ o]
+    total = lanes[..., :1]
+    chroma = sums[..., _N_MEL:]
+    sums[..., _N_MEL:] = np.where(total > _EPS, chroma / np.maximum(total, np.float32(_EPS)),
+                                  chroma)
+    return sums
+
+
+@functools.lru_cache(maxsize=8)
+def feature_entries(f_bins: int, sample_rate: int, window_size: int) -> np.ndarray:
+    """`feature_tables`' sparse table as the kernel reads it: [S, 32, 2]
+    int32, lane l's t-th entry of `feature_plan`'s segments at [t, l],
+    each entry (bin | row << 16, the bits of its float32 weight); so one
+    8-byte load gives an entry's bin, weight and row, and the warp's t-th
+    loads read one contiguous 256-byte run. S is ceil(nnz / 32) rounded up
+    to WALK_STEP; past its segment a lane holds no-ops (bin 0, weight 0,
+    the segment's last row; zeros for a lane without entries)."""
+    row_ptr, bins, weights, _ = feature_tables(f_bins, sample_rate, window_size)
+    rows = np.repeat(np.arange(_N_SUMS, dtype=np.int32), np.diff(row_ptr))
+    packed = np.stack([bins | (rows << 16), weights.view(np.int32)], axis=1)
+    segments, _ = feature_plan(row_ptr)
+    per_lane = -(-int(row_ptr[-1]) // 32)
+    out = np.zeros((max(-(-per_lane // WALK_STEP), 1) * WALK_STEP, 32, 2), np.int32)
+    for lane, (start, end) in enumerate(segments):
+        out[: end - start, lane] = packed[start:end]
+        if end > start:
+            out[end - start:, lane, 0] = rows[end - 1] << 16
+    return out
+
+
 @functools.lru_cache(maxsize=16)
 def _feature_tables_on(f_bins: int, sample_rate: int, window_size: int, device: torch.device):
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in feature_tables(f_bins, sample_rate, window_size))
+    """row_ptr, entries and freq_logf on `device`, as the kernel takes them."""
+    row_ptr, _, _, freq_logf = feature_tables(f_bins, sample_rate, window_size)
+    entries = feature_entries(f_bins, sample_rate, window_size)
+    return tuple(torch.from_numpy(a).to(device) for a in (row_ptr, entries, freq_logf))
 
 
 def frame_features(magnitude: torch.Tensor, sample_rate: int, window_size: int) -> torch.Tensor:
@@ -293,12 +385,12 @@ def stft_magnitude_hopper(
         stream = torch.cuda.current_stream(dev).cuda_stream
         if with_features:
             feat = torch.empty((b, t, N_FEAT), dtype=torch.float32, device=dev)
-            row_ptr, bins, weights, freq_logf = _feature_tables_on(
+            row_ptr, entries, freq_logf = _feature_tables_on(
                 f_bins, int(sample_rate), window_size, dev)
             _build.call(
                 "sonido_stft_features", sig.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
                 mag.data_ptr(), aux.data_ptr(), feat.data_ptr(), row_ptr.data_ptr(),
-                bins.data_ptr(), weights.data_ptr(), freq_logf.data_ptr(), *geometry, stream,
+                entries.data_ptr(), freq_logf.data_ptr(), *geometry, stream,
             )
         else:
             _build.call(

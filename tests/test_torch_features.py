@@ -245,3 +245,70 @@ def test_k10_wrapper_plain_on_cpu_raises_elsewhere():
     with pytest.raises(ValueError, match="no K1 kernel"):
         hopper_stft.stft_magnitude_hopper(torch.empty((2, 4096), device="meta"), 1024, 256,
                                           with_features=True)
+
+
+GEOMETRIES = [(w, sr) for w in (64, 256, 1024, 2048) for sr in (8000, 16000, 22050, 44100)]
+
+
+def _tables(w, sr):
+    f_bins = w // 2 + 1
+    row_ptr, bins, weights, _ = hopper_stft.feature_tables(f_bins, sr, w)
+    return row_ptr, bins, weights, hopper_stft.feature_entries(f_bins, sr, w)
+
+
+@pytest.mark.parametrize("w,sr", GEOMETRIES)
+def test_feature_sums_model_matches_plain_lanes(w, sr):
+    """K10's weighted sums in the kernel's order (feature_sums_model: 32
+    lane segments, the slot layout, the fixed combine and the butterfly
+    chroma total) against frame_features' mel and chroma lanes on the
+    same magnitudes, at FEAT_SAME_MAGNITUDES; one frame of all-zero
+    power gives zero mel and chroma. At 64/44.1 kHz 14 of the 38 rows
+    are empty (8 mel filters and 6 chroma classes hold no bin)."""
+    row_ptr, _, _, entries = _tables(w, sr)
+    x = parity.synth_pcm(2, max(sr // 2, 3 * w), 21, sr)
+    mag = hopper_stft.stft_magnitude_plain(x, w, max(w // 4, 16), pre_emph=PRE)[0]
+    mag[1, 0] = 0.0
+    ref = hopper_stft.frame_features(mag, sr, w).numpy()
+    sums = hopper_stft.feature_sums_model((mag * mag).numpy(), row_ptr, entries)
+    errors, failures = parity.check_feat(np.concatenate([sums, ref[..., 38:]], -1), ref,
+                                         same_magnitudes=True)
+    assert not failures, (failures, errors)
+    assert not sums[1, 0].any()
+    if (w, sr) == (64, 44100):
+        assert int((np.diff(row_ptr) == 0).sum()) == 14
+
+
+@pytest.mark.parametrize("w,sr", GEOMETRIES)
+def test_feature_plan_covers_each_entry_once_in_distinct_slots(w, sr):
+    """The 32 segments cover the table's entries once, in order, each
+    within one of nnz / 32; no two (lane, row) partials share a slot;
+    row r's slots are exactly the lanes that hold its entries, at
+    lane + r, inside the kSlots scratch."""
+    row_ptr, bins, weights, entries = _tables(w, sr)
+    nnz = int(row_ptr[-1])
+    segments, rows = hopper_stft.feature_plan(row_ptr)
+    assert segments.shape == (32, 2) and rows.shape == (38, 2)
+    assert segments[0, 0] == 0 and segments[-1, 1] == nnz
+    assert (segments[1:, 0] == segments[:-1, 1]).all()
+    size = segments[:, 1] - segments[:, 0]
+    assert size.min() >= nnz // 32 and size.max() <= -(-nnz // 32)
+    lane_of = np.repeat(np.arange(32), size)
+    row_of = np.repeat(np.arange(38), np.diff(row_ptr))
+    pairs = sorted(set(zip(lane_of.tolist(), row_of.tolist())))
+    slots = [lane + row for lane, row in pairs]
+    assert len(set(slots)) == len(slots) and max(slots) < hopper_stft.N_SLOTS
+    for r, (first, count) in enumerate(rows):
+        assert list(range(first, first + count)) == [lane + r for lane, row in pairs if row == r]
+    # the packed entries, interleaved by lane: lane l's t-th entry at
+    # [t, l], (bin | row << 16, the weight's bits); past its count no-ops
+    # (bin 0, weight 0, its last row), to a multiple of WALK_STEP
+    step = hopper_stft.WALK_STEP
+    assert entries.shape == (-(-size.max() // step) * step, 32, 2) and entries.dtype == np.int32
+    t = np.concatenate([np.arange(n) for n in size])
+    np.testing.assert_array_equal(entries[t, lane_of, 0] & 0xFFFF, bins)
+    np.testing.assert_array_equal(entries[t, lane_of, 0] >> 16, row_of)
+    np.testing.assert_array_equal(entries[t, lane_of, 1].view(np.float32), weights)
+    for lane, (start, end) in enumerate(segments):
+        pad = entries[end - start:, lane]
+        assert not pad[:, 1].any() and not (pad[:, 0] & 0xFFFF).any()
+        assert (pad[:, 0] >> 16 == (row_of[end - 1] if end > start else 0)).all()

@@ -373,7 +373,7 @@ def test_build_command_targets_hopper(tmp_path, monkeypatch):
     # sig, twiddle, pitch, conf, amp (nullable)
     assert sigs["sonido_yin_pitch"][:5] == (P, P, P, P, P)
     assert sigs["sonido_yin_pitch"][-1] == P and len(sigs["sonido_yin_pitch"]) == 16
-    assert sigs["sonido_stft_features"] == (P,) * 10 + (I,) * 5 + (F, P)
+    assert sigs["sonido_stft_features"] == (P,) * 9 + (I,) * 5 + (F, P)
     assert sigs["sonido_stft_occupancy"] == (I, I, I, P, P)
     assert sigs["sonido_yin_difference"] == (P, P, P, I, I, I, I, I, P)
     assert sigs["sonido_yin_occupancy"] == (I, I, I, P, P)

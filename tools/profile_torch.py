@@ -76,15 +76,30 @@ STFT_ABLATIONS = {
     "drop_magnitude_stores": [(r"\n        out\[k\] = mg\[i\];", "")],
     "drop_passes_after_0": [(r"\n    fft_passes_from<kLog2N, 1>\(buf, twiddle, lane\);", "")],
     "drop_rolloff_search": [(r"__ballot_sync\(kFull, in_chunk && base \+ v >= thr\)", "0u")],
-    # K10's feature epilogue, part by part
-    "drop_weighted_sums": [(r"\n    for \(int j = fa\.row_ptr\[o\]; j < fa\.row_ptr\[o \+ 1\]; \+\+j\) "
-                            r"acc \+= fa\.weight\[j\] \* p\[fa\.bin\[j\]\];", "")],
-    "drop_descriptor_passes": [(r"(?s)\n  for \(int k = lane; k < f_bins; k \+= 32\) \{\n    const float mk"
-                                r".*?\n  \}(?=\n  psum = warp_sum)", ""),
-                               (r"\n  for \(int k = lane; k < f_bins; k \+= 32\) \{\n    const float d = "
-                                r"fa\.freq_logf\[k\]\.x - centroid;\n    bw \+= d \* d \* m\[k\];\n  \}", "")],
-    "drop_chroma_normalize": [(r"(?s)\n  if \(lane < kChroma\) \{\n    float total = 0\.f;.*?\n  \}\n\}",
-                               "\n}")],
+    # K10's feature epilogue, part by part (the weighted sums' segment
+    # walk; the descriptor sums on the split's pass and the bandwidth's
+    # pass; the chroma total and division), and design variants
+    "drop_weighted_sums": [(r"(?s)\n  if \(plan\.x > 0\) \{\n    const int2\* col.*?\n    slots\[lane \+ cur\] = acc;\n  \}", "")],
+    "drop_descriptor_passes": [(r"\n        if constexpr \(kFeatures\) desc\.add\([^\n]*\);", ""),
+                               (r"(?s)\n  for \(int k = lane; k < f_bins; k \+= 32\) \{\n    const float dk.*?\n  \}", "")],
+    "drop_descriptor_sums": [(r"\n        if constexpr \(kFeatures\) desc\.add\([^\n]*\);", "")],
+    "drop_bandwidth_pass": [(r"(?s)\n  for \(int k = lane; k < f_bins; k \+= 32\) \{\n    const float dk.*?\n  \}", "")],
+    "drop_descriptor_finish": [(r"  if \(lane == 0\) \{  // finish the five[^\n]*", "  if (false) {")],
+    "fast_finish": [(r"return a / b;", "return __fdividef(a, b);"),
+                    (r"return sqrtf\(x\);", "return sqrt_approx(x);"),
+                    (r"return exp2f\(x\);",
+                     "float y;\n  asm(\"ex2.approx.f32 %0, %1;\" : \"=f\"(y) : \"f\"(x));\n  return y;")],
+    "finish_in_every_lane": [(r"  if \(lane == 0\) \{  // finish the five[^\n]*", "  {")]
+    + [(r"\n    out\[kSums%s\] = " % re.escape(k), "\n    if (lane == 0) out[kSums%s] = " % k)
+       for k in ("", " + 1", " + 2", " + 3", " + 4")],
+    "chroma_reciprocal": [(r"  auto norm = \[&\]\(float e\) \{ return total > kEps \? e / fmaxf\(total, kEps\) : e; \};",
+                           "  const float inv = 1.f / fmaxf(total, kEps);\n"
+                           "  auto norm = [&](float e) { return total > kEps ? e * inv : e; };")],
+    "drop_chroma_normalize": [(r"warp_sum\(\(lane >= kMel \? v0 : 0\.f\) \+ v1\)", "0.f")],
+    "ieee_log": [(r"return __log2f\(x\);", "return log2f(x);")],
+    # kWalkStep must divide ops/hopper_stft.WALK_STEP (the table's padding)
+    "walk_step_1": [(r"kWalkStep = 4;", "kWalkStep = 1;")],
+    "walk_step_2": [(r"kWalkStep = 4;", "kWalkStep = 2;")],
 }
 
 # name -> regex edits of csrc/yin.cu (each must match exactly once)
