@@ -284,7 +284,7 @@ __device__ __forceinline__ float transpose_sum8(const float (&v)[8], int lane) {
 
 // K10's per-frame epilogue, by the frame's warp: d the lane's descriptor
 // sums, p and m the frame's power and magnitudes [F] in its buffer, slots
-// kSlots floats of scratch, plan this lane's SumsPlan.
+// kSlots floats of scratch, plan this lane's sums_plan.
 __device__ __forceinline__ void feature_epilogue(const FeatArgs& fa, const Descriptors& d,
                                                  const float* __restrict__ p,
                                                  const float* __restrict__ m,

@@ -209,16 +209,38 @@ def feature_plan(row_ptr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return segments, np.stack([lo + np.arange(_N_SUMS), count], axis=1)
 
 
+@functools.lru_cache(maxsize=8)
+def feature_entries(f_bins: int, sample_rate: int, window_size: int) -> np.ndarray:
+    """`feature_tables`' sparse table as the kernel reads it: [S, 32, 2]
+    int32, lane l's t-th entry of `feature_plan`'s segments at [t, l],
+    each entry (bin | row << 16, the bits of its float32 weight); so one
+    8-byte load gives an entry's bin, weight and row, and the warp's t-th
+    loads read one contiguous 256-byte run. S is ceil(nnz / 32) rounded up
+    to WALK_STEP; past its segment a lane holds no-ops (bin 0, weight 0,
+    the segment's last row; zeros for a lane without entries)."""
+    row_ptr, bins, weights, _ = feature_tables(f_bins, sample_rate, window_size)
+    rows = np.repeat(np.arange(_N_SUMS, dtype=np.int32), np.diff(row_ptr))
+    packed = np.stack([bins | (rows << 16), weights.view(np.int32)], axis=1)
+    segments, _ = feature_plan(row_ptr)
+    per_lane = -(-int(row_ptr[-1]) // 32)
+    out = np.zeros((max(-(-per_lane // WALK_STEP), 1) * WALK_STEP, 32, 2), np.int32)
+    for lane, (start, end) in enumerate(segments):
+        out[: end - start, lane] = packed[start:end]
+        if end > start:
+            out[end - start:, lane, 0] = rows[end - 1] << 16
+    return out
+
+
 def feature_sums_model(power: np.ndarray, row_ptr: np.ndarray, entries: np.ndarray) -> np.ndarray:
     """numpy model of K10's weighted sums in the kernel's order: [..., F]
     power -> [..., 38] (mel energies, then the unit-sum chroma), float32.
     `entries` is `feature_entries`' table. Each lane walks its segment of
-    `feature_plan` with one running sum (acc += w * p[bin], one rounding
-    as the kernel's fused multiply-add nearly gives), storing it at slot
-    lane + row at each row change; row
-    r adds its slots in lane order; the chroma total is the warp's
-    butterfly sum over lanes (xor 16, 8, 4, 2, 1) of row `lane` for lanes
-    26-31 plus row lane + 32 for lanes 0-5."""
+    `feature_plan`, no-op pads included, with one running sum (acc += w *
+    p[bin], one rounding as the kernel's fused multiply-add nearly gives),
+    storing it at slot lane + row at each row change; row r adds its
+    slots in lane order; the chroma total is the warp's butterfly sum over
+    lanes (xor 16, 8, 4, 2, 1) of row `lane` for lanes 26-31 plus row
+    lane + 32 for lanes 0-5."""
     p = np.asarray(power, np.float32)
     segments, rows = feature_plan(row_ptr)
     bins = entries[..., 0] & 0xFFFF
@@ -227,7 +249,7 @@ def feature_sums_model(power: np.ndarray, row_ptr: np.ndarray, entries: np.ndarr
     slots = np.zeros(p.shape[:-1] + (N_SLOTS,), np.float32)
     for lane, (j0, j1) in enumerate(segments):
         acc, cur = np.zeros(p.shape[:-1], np.float32), None
-        for t in range(len(entries) if j1 > j0 else 0):  # the no-op pads too
+        for t in range(len(entries) if j1 > j0 else 0):
             if row_of[t, lane] != cur:
                 if cur is not None:
                     slots[..., lane + cur] = acc
@@ -249,28 +271,6 @@ def feature_sums_model(power: np.ndarray, row_ptr: np.ndarray, entries: np.ndarr
     sums[..., _N_MEL:] = np.where(total > _EPS, chroma / np.maximum(total, np.float32(_EPS)),
                                   chroma)
     return sums
-
-
-@functools.lru_cache(maxsize=8)
-def feature_entries(f_bins: int, sample_rate: int, window_size: int) -> np.ndarray:
-    """`feature_tables`' sparse table as the kernel reads it: [S, 32, 2]
-    int32, lane l's t-th entry of `feature_plan`'s segments at [t, l],
-    each entry (bin | row << 16, the bits of its float32 weight); so one
-    8-byte load gives an entry's bin, weight and row, and the warp's t-th
-    loads read one contiguous 256-byte run. S is ceil(nnz / 32) rounded up
-    to WALK_STEP; past its segment a lane holds no-ops (bin 0, weight 0,
-    the segment's last row; zeros for a lane without entries)."""
-    row_ptr, bins, weights, _ = feature_tables(f_bins, sample_rate, window_size)
-    rows = np.repeat(np.arange(_N_SUMS, dtype=np.int32), np.diff(row_ptr))
-    packed = np.stack([bins | (rows << 16), weights.view(np.int32)], axis=1)
-    segments, _ = feature_plan(row_ptr)
-    per_lane = -(-int(row_ptr[-1]) // 32)
-    out = np.zeros((max(-(-per_lane // WALK_STEP), 1) * WALK_STEP, 32, 2), np.int32)
-    for lane, (start, end) in enumerate(segments):
-        out[: end - start, lane] = packed[start:end]
-        if end > start:
-            out[end - start:, lane, 0] = rows[end - 1] << 16
-    return out
 
 
 @functools.lru_cache(maxsize=16)
