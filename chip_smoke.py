@@ -13,7 +13,8 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
   3. build the kernels; the compiler's registers and spills, and K1's and
      K10's shared memory per block and resident blocks per SM at 1024/256,
      K2's at 1024/512 and 1024/256 (the period amplitude's), K3's at
-     1024/512
+     1024/512; K4's and K9's registers, spills, shared memory and blocks
+     per SM
   4. K1 (STFT + aux) against its plain version, B=4 x 5 s and B=128 x 30 s
   5. K2 (YIN) against its plain version, same inputs; then K1, K2 and K3
      (YIN difference rows) at the other windows, hops and pre-emphasis
@@ -34,7 +35,13 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
  10. K4 (onset thinning) against its plain version, bit for bit: the
      three thinning shapes of the music step at 30 s, random candidates at
      5 % and 30 % and the real flux candidates, min_frames 8 and 4;
-     [3, 777] and a [2, 3, T] input
+     [3, 777] and a [2, 3, T] input; then the skip-ahead walk's edges at
+     [128, 5163] (min_frames 40, 1 and 8 on rows that are full, empty or
+     hold a lone candidate at T - 1), [2, 3, 5163], [4, 40000] at
+     min_frames 20000 (past a tile) and [4, 40000] with onsets kept just
+     before each tile edge at min_frames 1, 8, 40 and 100 (the walk
+     carried into the next tile on the masked and the seek path), each
+     also equal to the numpy model of the kernel's plan (ops/hopper_onsets)
  11. the wrappers on [2, 3, N] equal the same rows as [6, N] (K1, K2, K2
      with amplitude)
  12. the public path at full width: FingerprintGenerator (44.1 kHz,
@@ -50,7 +57,9 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
  14. the generator (both routings) and the music program at [2, 44100]
      on the card against the CPU, with utils/parity's gates; the music
      program also at 16 kHz ([2, 16000], ZCR by the exact gate)
- 15. K2 with amplitude and K4 against their plain versions, timed
+ 15. K2 with amplitude and K4 against their plain versions, timed (CUDA
+     events); K4 also on the device alone (torch.profiler; the entry's
+     `device_ms`), its wrapper's host work being longer than the kernel
  16. one torch.profiler step each of the generator and the music paths:
      the device's busy share and its top kernels
  17. the banded DTW fill (K5/K6/K7's counterpart: the distance pre-pass,
@@ -113,7 +122,12 @@ the card:
  25. K9 (contrast band means) at the main path's magnitudes
      [128, 5164, 513] with the 6 contrast edges, driven once as its
      public op, then against its plain version (the contrast sorts), and
-     the tie and zero case exactly
+     the tie and zero case exactly; two launches bit-equal; then at full
+     size ties at the k-th key, zero and subnormal powers, one constant
+     band, degenerate bands, the 22.05 kHz edges and W = 2048 (the lane
+     plan) and W = 4096 (the general form: 70 keys a lane), each against
+     its plain version with two launches bit-equal and against the numpy
+     model of the lane plan on 4,096 frames
  26. K3 at B=128 x 30 s, 1024/512, driven once as its public op, then
      against its plain version
  27. K10, K9 and K3 against their plain versions, timed; K1 and K10 in
@@ -911,6 +925,58 @@ def run_features(card: str, dev: torch.device, full: torch.Tensor, small: torch.
             and not bool(tpeak[0, :, others].any()) and not bool(tvalley[0, :, others].any())):
         raise AssertionError("K9: the constant band or the zero bands are not exact")
     log("[K9] the tie and zero case exact")
+    again = k9(mag, edges)
+    if not (torch.equal(peak, again[0]) and torch.equal(valley, again[1])):
+        raise AssertionError("K9: two launches gave different bits")
+    del again
+    log("[K9] two launches bit-equal")
+
+    def hold_k9(m, e, what):
+        """K9 against its plain version on the card and, where band_plan
+        gives a lane plan, against the numpy model of the plan on the
+        first 4,096 frames (the gate is parity's; bit-equal elements are
+        counted: where the kernel ran the plan, the two sum in one
+        order)."""
+        got = k9(m, e)
+        ref = k9_plain(m, e)
+        again = k9(m, e)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K9 {what}: two launches gave different bits")
+        require(parity.check_band_means(*(np32(t) for t in (*got, *ref))),
+                f"K9 vs plain, {what} {tuple(m.shape)}, edges {e}")
+        keys = hopper_contrast.band_plan(tuple(e), m.shape[-1])[1]
+        if keys:
+            sub = np32(m.reshape(-1, m.shape[-1])[:4096])
+            mp, mv = hopper_contrast.band_means_model(sub, e)[:2]
+            kp, kv = (np32(t.reshape(-1, t.shape[-1])[:4096]) for t in got)
+            require(parity.check_band_means(kp, kv, mp, mv), f"K9 vs its numpy model, {what}")
+            log(f"[K9 {what}] a plan of {keys} keys a lane: {int((kp == mp).sum() + (kv == mv).sum())}"
+                f" of {kp.size + kv.size} means bit-equal to the model")
+        else:
+            log(f"[K9 {what}] no lane plan: the general form")
+
+    # the model's hazards at full size: ties at the k-th key, zero and
+    # subnormal powers, a constant band, degenerate bands, W = 2048, the
+    # 22.05 kHz edges; and the general form at W = 4096
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    haz = torch.randn(mag.shape, generator=gen, device=dev).abs_()
+    hold_k9(torch.round(haz * 2) / 2, edges, "ties")
+    haz[::3] = 0.0
+    haz[1::3] *= 1e-21
+    hold_k9(haz, edges, "zero and subnormal powers")
+    haz.zero_()
+    haz[..., 20:300] = 0.5
+    hold_k9(haz, edges, "one constant band")
+    del haz
+    hold_k9(mag, (0, 4, 4, 10, 600), "degenerate and clipped bands")
+    hold_k9(mag, contrast_band_edges(6, mag.shape[-1], 22050), "22.05 kHz edges")
+    m_big = k1(full, 2048, 1024, pre_emph=PRE_EMPH)[0]
+    hold_k9(m_big, contrast_band_edges(6, m_big.shape[-1], SR), "W = 2048")
+    m_big = torch.randn((FULL_B, 645, 2049), generator=gen, device=dev).abs_()
+    hold_k9(m_big, contrast_band_edges(6, 2049, SR), "W = 4096 (random magnitudes, the general form)")
+    del m_big
+    torch.cuda.empty_cache()
     t9 = in_turns(lambda: k9(mag, edges), lambda: k9_plain(mag, edges), 10)
     res["K9_times"] = t9
     in_bands = edges[-1] - edges[0]
@@ -1021,6 +1087,26 @@ def main() -> int:
             raise AssertionError(f"{name} occupancy query failed: {lib.sonido_error_string(code)}")
         log(f"{name} at {WINDOW}/{HOP}: {smem.value} B of shared memory per block, "
             f"{blocks.value} blocks per SM [{card}]")
+    regs, local, smem, blocks = (ctypes.c_int() for _ in range(4))
+    out4 = [ctypes.byref(v) for v in (regs, local, smem, blocks)]
+    code = lib.sonido_thin_onsets_occupancy(*out4)
+    if code != 0:
+        raise AssertionError(f"K4 occupancy query failed: {lib.sonido_error_string(code)}")
+    log(f"K4: {regs.value} registers, {local.value} B of local memory (spills), {smem.value} B of "
+        f"shared memory per block, {blocks.value} blocks per SM [{card}]")
+    from sonido_sonar_tpu_torch.ops.hopper_contrast import band_plan
+    from sonido_sonar_tpu_torch.ops.spectral import contrast_band_edges
+    for what, keys, f_bins in (
+        ("lane plan", band_plan(contrast_band_edges(6, WINDOW // 2 + 1, SR), WINDOW // 2 + 1)[1],
+         WINDOW // 2 + 1),
+        ("general form", 0, WINDOW // 2 + 1),
+    ):
+        code = lib.sonido_contrast_occupancy(keys, f_bins, *out4)
+        if code != 0:
+            raise AssertionError(f"K9 occupancy query failed: {lib.sonido_error_string(code)}")
+        log(f"K9 {what} ({keys} keys a lane) at F = {f_bins}: {regs.value} registers, {local.value} B "
+            f"of local memory (spills), {smem.value} B of shared memory per block, {blocks.value} "
+            f"blocks per SM [{card}]")
     for name, w, hop, rows in (("K2", PITCH_WINDOW, PITCH_HOP, 0), ("K2 amp", 1024, 256, 0),
                                ("K3", PITCH_WINDOW, PITCH_HOP, 1)):
         smem, blocks = ctypes.c_int(), ctypes.c_int()
@@ -1220,8 +1306,44 @@ def main() -> int:
     odd_c = torch.from_numpy(rng.random((3, 777)) < 0.3).to(dev)
     hold_k4(odd_c, 1, "[3, 777]")
     hold_k4(torch.from_numpy(rng.random((2, 3, t_tempo)) < 0.3).to(dev), 4, "[2, 3, T]")
-    log(f"[K4 vs plain] bit-identical on {k4_checked + 3} inputs; the real flux candidates "
-        f"{int(real.sum())} -> {kept} kept")
+    # the skip-ahead walk's edges: a skip that crosses words (40), one
+    # frame (1), full and empty rows, a lone candidate at T - 1, odd T
+    # with leading axes; each also against the numpy model of the plan
+    edge = torch.from_numpy(rng.random((FULL_B, t_flux)) < 0.3)
+    edge[1] = False
+    edge[2] = True
+    edge[3, :] = False
+    edge[3, -1] = True
+    odd = torch.from_numpy(rng.random((2, 3, 5163)) < 0.1)
+    long_rows = torch.from_numpy(rng.random((4, 40000)) < 0.01)  # three tiles
+    # the walk carried from one tile into the next, on the masked path
+    # (min_frames 1, 8, 40) and the seek path (100): row 0 keeps the frame
+    # just before each tile edge, then a run of candidates across it; row
+    # 1 is random; row 2 holds dense runs across the edges; row 3 keeps
+    # the two frames just before each edge and T - 1
+    tiles = torch.from_numpy(rng.random((4, 40000)) < 0.3)
+    tiles[0] = False
+    tiles[2] = torch.from_numpy(rng.random(40000) < 0.02)
+    tiles[3] = False
+    for e in (hopper_onsets.TILE, 2 * hopper_onsets.TILE):
+        tiles[0, e - 1:e + 121] = True
+        tiles[2, e - 200:e + 200] = torch.from_numpy(rng.random(400) < 0.5)
+        tiles[3, e - 2:e] = True
+    tiles[3, -1] = True
+    holds = [(edge, 40, "min_frames 40"), (edge, 1, "min_frames 1"), (edge, 8, "min_frames 8"),
+             (odd, 8, "[2, 3, 5163]"), (long_rows, 20000, "min_frames past a tile")]
+    holds += [(tiles, mf, f"across tile edges, min_frames {mf}") for mf in (1, 8, 40, 100)]
+    for cand, mf, what in holds:
+        got_edge = k4(cand.to(dev), mf).cpu().numpy()
+        hold_k4(cand.to(dev), mf, f"{tuple(cand.shape)}, {what}")
+        if not np.array_equal(got_edge, hopper_onsets.thin_onsets_model(cand.numpy(), mf)):
+            raise AssertionError(f"K4 differs from the numpy model of its plan, {what}")
+        if cand is tiles and not all(bool(got_edge[0, e - 1]) for e in (hopper_onsets.TILE,
+                                                                         2 * hopper_onsets.TILE)):
+            raise AssertionError(f"K4 {what}: the frame before a tile edge was not kept")
+        k4_checked += 1
+    log(f"[K4 vs plain] bit-identical on {k4_checked + 3} inputs (the last {len(holds)} also "
+        f"equal to the numpy model); the real flux candidates {int(real.sum())} -> {kept} kept")
 
     six = parity.synth_pcm(6, SR + 777, SEED + 5, SR, dev)    # phase 11
     m6, a6 = k1(six, WINDOW, HOP, pre_emph=PRE_EMPH)
@@ -1348,6 +1470,12 @@ def main() -> int:
             f"plain {times[name][1]:.3f} ms [{card}]")
         torch.cuda.empty_cache()
     del full_sp
+    # K4's kernel takes less time than its wrapper's host work: its entry
+    # keeps the events' time as `ms`, as every kernel's, and the kernel's
+    # own device time (torch.profiler) as `device_ms`
+    k4_device_ms = parity.device_ms(lambda: k4(real, 8), "thin_kernel", 50)
+    log(f"K4 at {tuple(real.shape)}: {k4_device_ms:.4f} ms on the device alone (torch.profiler), "
+        f"{times['K4'][0]:.4f} ms per call by CUDA events [{card}]")
 
     profile_step("generator news", gen_step)                  # phase 16
     profile_step("music program", music_step)
@@ -1389,7 +1517,8 @@ def main() -> int:
          "source": "sonido_sonar_tpu_torch/csrc/onsets.cu",
          "replaces": "sonido_sonar_tpu/ops/pallas_onsets.py:60",
          "launches": music_launches["K4"], "max_abs_err": 0.0,
-         "ms": times["K4"][0], "plain_ms": times["K4"][1], "key": "K4"},
+         "ms": times["K4"][0], "plain_ms": times["K4"][1], "key": "K4",
+         "device_ms": k4_device_ms},
         {"name": "K5/K6/K7 dtw_fill_banded", "route": "cuda",
          "source": "sonido_sonar_tpu_torch/csrc/dtw.cu",
          "replaces": "sonido_sonar_tpu/ops/stats/pallas_dtw.py:297, :439, :173",

@@ -63,10 +63,16 @@ _SIGNATURES = {
     "sonido_yin_difference": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # window, hop, rows (K3), smem bytes (out), blocks per SM (out)
     "sonido_yin_occupancy": (_I, _I, _I, _P, _P),
-    # mag, bands, peak, valley, frames, bins, bands, stream
-    "sonido_contrast_band_means": (_P, _P, _P, _P, _L, _I, _I, _P),
+    # mag, bands, lanes, peak, valley, frames, bins, bands, the keys a lane
+    # of the plan needs (0: no plan, the general form), largest group, stream
+    "sonido_contrast_band_means": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # the keys a lane needs, bins, registers, local bytes, smem bytes,
+    # blocks per SM (the last four out)
+    "sonido_contrast_occupancy": (_I, _I, _P, _P, _P, _P),
     # cand, kept, rows, frames, min_frames, stream
     "sonido_thin_onsets": (_P, _P, _I, _I, _I, _P),
+    # registers, local bytes, smem bytes, blocks per SM (all out)
+    "sonido_thin_onsets_occupancy": (_P, _P, _P, _P),
     # q, r, cost, batch, n, m, d, band, stream
     "sonido_dtw_fill_banded": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "sonido_dtw_local_distances": (_P, _P, _P, _I, _I, _I, _I, _I, _P),

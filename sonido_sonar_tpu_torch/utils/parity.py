@@ -5,7 +5,7 @@ JAX package, same numpy inputs) and `chip_smoke.py` (each CUDA kernel
 against its plain PyTorch version on the card). Every check returns the
 measured errors and a list of failures; the caller prints or asserts.
 Inputs to the checks are numpy arrays; `synth_pcm` makes the test
-signals both use.
+signals both use; `device_ms` times a kernel on the card alone.
 """
 
 from __future__ import annotations
@@ -216,6 +216,24 @@ def synth_pcm(
     x *= torch.from_numpy(tonal.astype(np.float64)).to(device)[:, None]
     x += torch.from_numpy(sigma).to(device)[:, None] * noise
     return x.to(torch.float32).contiguous()
+
+
+def device_ms(fn, kernel: str, iters: int) -> float:
+    """Mean device time in ms of the CUDA kernels whose name holds
+    `kernel` over `iters` calls of fn(), by torch.profiler, after one
+    warm-up call. Where a kernel takes less time than its wrapper's host
+    work, CUDA events around the calls time the host; this reads the
+    kernel alone. Raises if the profiler saw no such kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if kernel in e.key]
+    if not ev:
+        raise RuntimeError(f"the profiler saw no kernel named {kernel}")
+    return sum(e.self_device_time_total for e in ev) / sum(e.count for e in ev) / 1e3
 
 
 def voiced_pcm(batch: int, n: int, seed: int, sample_rate: int = 44100) -> torch.Tensor:

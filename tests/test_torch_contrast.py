@@ -149,3 +149,94 @@ def test_k9_wrapper_plain_on_cpu_raises_elsewhere():
     assert all(torch.equal(a.view(2, 3, 10, 6), b) for a, b in zip(flat, got))
     with pytest.raises(ValueError, match="no K9 kernel"):
         means(torch.empty((4, 513), device="meta"), edges)
+
+
+def _case_magnitudes(kind, f, seed):
+    """[3, 40, f] float32 magnitudes with the named hazard."""
+    rng = np.random.default_rng(seed)
+    mag = np.abs(rng.standard_normal((3, 40, f))).astype(np.float32)
+    if kind == "ties":  # few levels: the k-th key sits in a run of equal keys
+        mag = np.round(mag * 2.0).astype(np.float32) / 2.0
+    elif kind == "zeros_subnormals":  # p = 0 and p below 2^-126
+        mag[0] = 0.0
+        mag[1] = (mag[1] * 1e-21).astype(np.float32)
+        mag[2, :, ::3] = 0.0
+    elif kind == "constant_band":
+        mag[...] = 0.0
+        mag[..., 20:300] = 0.5
+    return mag
+
+
+@pytest.mark.parametrize(
+    "kind,f,sr,edges",
+    [
+        ("random", 513, 44100, None),
+        ("ties", 513, 44100, None),
+        ("zeros_subnormals", 513, 44100, None),
+        ("constant_band", 513, 44100, None),
+        ("random", 513, 44100, (0, 4, 4, 10, 600)),  # degenerate and clipped bands
+        ("random", 1025, 44100, None),  # W = 2048: 35 keys on a lane
+        ("random", 513, 22050, None),  # the 22.05 kHz edges
+        ("ties", 257, 16000, None),
+    ],
+)
+def test_band_means_model_matches_a_sort(interpret, kind, f, sr, edges):
+    """The numpy replay of the kernel's lane plan (its rounds, packed
+    counts, early end and tie fill): its k-th keys equal the sorted band's
+    k-th values exactly, its means are within rtol 1e-6 of a float64 sort
+    and within utils/parity.check_band_means of JAX's kernel in interpret
+    mode (22-bit keys, not exact)."""
+    mag = _case_magnitudes(kind, f, f + sr)
+    edges = edges or contrast_band_edges(6, f, sr)
+    peak, valley, k_top, k_bot, rounds = hopper_contrast.band_means_model(mag, edges)
+    p = mag.astype(np.float32) ** 2
+    for b, (lo, hi, k) in enumerate(hopper_contrast.band_table(tuple(edges), f).tolist()):
+        if lo >= hi:
+            assert not peak[..., b].any() and not valley[..., b].any()
+            continue
+        ordered = np.sort(p[..., lo:hi], axis=-1)
+        np.testing.assert_array_equal(k_top[..., b].view(np.float32), ordered[..., hi - lo - k])
+        np.testing.assert_array_equal(k_bot[..., b].view(np.float32), ordered[..., k - 1])
+    want_peak, want_valley = _sorted_means(mag, edges)
+    np.testing.assert_allclose(peak, want_peak, rtol=1e-6, atol=1e-12)
+    np.testing.assert_allclose(valley, want_valley, rtol=1e-6, atol=1e-12)
+    jpeak, jvalley = jpc.band_select_means_pallas(jnp.asarray(mag), edges)
+    errors, failures = parity.check_band_means(peak, valley, np.asarray(jpeak), np.asarray(jvalley))
+    assert not failures, (failures, errors)
+    assert ((rounds >= 1) & (rounds <= 31)).all()
+    if kind == "constant_band":
+        assert (rounds == 31).all()  # every bucket of equal keys runs to bit 0
+
+
+@pytest.mark.parametrize(
+    "edges,f,fits",
+    [
+        (None, 513, True), (None, 1025, True), (None, 257, True),
+        (None, 2049, True),  # 70 keys a lane: the kernel takes its general form
+        ((0, 4, 4, 10, 600), 513, True), ((3, 9, 2, 50), 64, True),
+        (tuple(range(0, 34)), 64, False),  # 33 bands
+        ((0, 70000), 70001, False),  # counts past 16 bits
+    ],
+)
+def test_band_plan_covers_each_band_once(edges, f, fits):
+    """Each band's bins are held once, by an aligned power-of-two group of
+    lanes, K the most keys a lane holds; tables with no plan give K = 0
+    (the kernel's general form)."""
+    edges = edges or contrast_band_edges(6, f, SR)
+    lanes, keys, gmax = hopper_contrast.band_plan(tuple(edges), f)
+    assert lanes.shape == (32, 4) and lanes.dtype == np.int32
+    if not fits:
+        assert keys == 0 and (lanes[:, 0] == -1).all()
+        return
+    assert keys == lanes[:, 3].max() >= 1
+    table = hopper_contrast.band_table(tuple(edges), f)
+    for b, (lo, hi, _) in enumerate(table.tolist()):
+        mine = np.flatnonzero(lanes[:, 0] == b)
+        if lo >= hi:
+            assert mine.size == 0
+            continue
+        g = mine.size
+        assert g & (g - 1) == 0 and mine[0] % g == 0 and (np.diff(mine) == 1).all()
+        assert (lanes[mine, 2] == g).all() and gmax >= g
+        held = np.concatenate([lanes[i, 1] + g * np.arange(lanes[i, 3]) for i in mine])
+        assert sorted(held.tolist()) == list(range(lo, hi))

@@ -377,8 +377,10 @@ def test_build_command_targets_hopper(tmp_path, monkeypatch):
     assert sigs["sonido_stft_occupancy"] == (I, I, I, P, P)
     assert sigs["sonido_yin_difference"] == (P, P, P, I, I, I, I, I, P)
     assert sigs["sonido_yin_occupancy"] == (I, I, I, P, P)
-    assert sigs["sonido_contrast_band_means"] == (P, P, P, P, L, I, I, P)
+    assert sigs["sonido_contrast_band_means"] == (P, P, P, P, P, L, I, I, I, I, P)
+    assert sigs["sonido_contrast_occupancy"] == (I, I, P, P, P, P)
     assert sigs["sonido_thin_onsets"] == (P, P, I, I, I, P)
+    assert sigs["sonido_thin_onsets_occupancy"] == (P, P, P, P)
     assert sigs["sonido_dtw_fill_banded"] == (P, P, P, I, I, I, I, I, P)
     assert sigs["sonido_dtw_local_distances"] == (P, P, P, I, I, I, I, I, P)
     assert sigs["sonido_dtw_fill_rows"] == (P, I, I, I, I, P)
@@ -487,6 +489,82 @@ def test_k4_plain_matches_jax_scan_path(min_interval, hop):
     m, c = ttemporal.detect_onsets_from_flux(torch.from_numpy(flux), hop, SR, 0.3, min_interval)
     np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
     np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+
+
+def _k4_candidates(kind, shape, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "tile_edge":  # the frame before each 64-frame tile edge, then a run across it
+        cand = rng.random(shape) < 0.3
+        cand[0] = False
+        for e in range(64, shape[-1] - 40, 192):
+            cand[:, e - 1:e + 40] = True
+        return cand
+    if kind == "empty":
+        return np.zeros(shape, bool)
+    if kind == "full":
+        return np.ones(shape, bool)
+    if kind == "last_frame":  # a lone candidate at T - 1 after a burst
+        cand = np.zeros(shape, bool)
+        cand[..., :5] = True
+        cand[..., -1] = True
+        return cand
+    return rng.random(shape) < float(kind)
+
+
+@pytest.mark.parametrize(
+    "kind,shape,min_frames,tile",
+    [
+        ("0.3", (3, 777), 1, hopper_onsets.TILE),
+        ("0.3", (5, 700), 8, hopper_onsets.TILE),
+        ("0.3", (4, 1030), 40, hopper_onsets.TILE),  # skips cross words
+        ("empty", (3, 500), 8, hopper_onsets.TILE),
+        ("full", (3, 500), 8, hopper_onsets.TILE),
+        ("full", (2, 333), 1, hopper_onsets.TILE),
+        ("last_frame", (2, 645), 8, hopper_onsets.TILE),
+        ("0.1", (2, 3, 5163), 8, hopper_onsets.TILE),  # odd T, leading axes
+        ("0.002", (2, 5000), 4, hopper_onsets.TILE),  # runs of empty words
+        # several tiles: the walk carries across them
+        ("0.3", (4, 1030), 8, 64),
+        ("0.2", (2, 2000), 40, 96),
+        ("0.6", (3, 3000), 33, 128),  # min_frames past a word
+        ("0.3", (2, 700), 100, 64),  # min_frames past a tile: the carry skips whole tiles
+        ("0.3", (2, 700), 64, hopper_onsets.TILE),  # the last mask carried to the next word
+        ("0.3", (2, 700), 65, hopper_onsets.TILE),  # past it: a seek from the kept frame
+        # an onset kept just before each tile edge: the carry on the masked
+        # path (1, 8, 40) and on the seek path (100)
+        ("tile_edge", (2, 700), 1, 64),
+        ("tile_edge", (2, 700), 8, 64),
+        ("tile_edge", (2, 700), 40, 64),
+        ("tile_edge", (2, 700), 100, 64),
+    ],
+)
+def test_k4_model_matches_plain_and_pallas(kind, shape, min_frames, tile):
+    """The numpy replay of the kernel's plan (tiles, candidate words, the
+    walk that seeks words and steps through each on its bitmask) is
+    bit-equal to the plain recurrence and to JAX's Pallas kernel in
+    interpret mode."""
+    cand = _k4_candidates(kind, shape, shape[-1] + min_frames)
+    got = hopper_onsets.thin_onsets_model(cand, min_frames, tile)
+    plain = hopper_onsets.thin_onsets_plain(torch.from_numpy(cand), min_frames).numpy()
+    ref = np.asarray(thin_onsets_pallas(jnp.asarray(cand.reshape(-1, shape[-1])), min_frames,
+                                        interpret=True)).reshape(shape)
+    assert got.shape == shape and got.dtype == bool
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(got, ref)
+    if kind == "last_frame":
+        assert got[..., -1].all()
+    if kind == "tile_edge":
+        assert got[0, 63:660:192].all()
+    if kind == "full":
+        assert got.sum() == np.prod(shape[:-1]) * -(-shape[-1] // min_frames)
+
+
+def test_k4_tiling_constants_match_the_kernel():
+    """The model's tile is the kernel's."""
+    src = (_build._PKG / "csrc" / "onsets.cu").read_text()
+    assert "constexpr int kThreads = 256;" in src and "kChunksPerThread = 4;" in src
+    assert "constexpr int kTile = kThreads * kChunksPerThread * 16 - 32;" in src
+    assert hopper_onsets.TILE == 256 * 4 * 16 - 32 and hopper_onsets.TILE % 32 == 0
 
 
 def test_wrappers_take_leading_axes_as_rows():

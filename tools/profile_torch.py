@@ -46,6 +46,20 @@ timed, with us per step and each pair's misses, on the fleet's energies
 [2, 10332, 1] band 5167 (a related pair delayed 2.9 s, an unrelated
 one), a prescribed-path band of that geometry (3,000-step up and left
 runs, utils/parity.prescribed_path_band) and K6's [8, 2048, 12] band 64.
+
+    python3 tools/profile_torch.py --ablate-onsets [NAME ...]
+
+does the same for csrc/onsets.cu (ONSETS_ABLATIONS): K4 held bit for bit
+to its plain version and its device time (torch.profiler) on the music
+step's flux candidates and on random ones at [128, 5163] (densities 0.3
+and 0.002), min_frames 8.
+
+    python3 tools/profile_torch.py --ablate-contrast [NAME ...]
+
+does the same for csrc/contrast.cu (CONTRAST_ABLATIONS): K9 held to its
+plain version (utils/parity.check_band_means) and its device time at the
+main path's magnitudes [128, 5164, 513], with the lane plan's registers
+and spills.
 """
 
 from __future__ import annotations
@@ -314,6 +328,86 @@ print("K1 %.3f ms, K10 %.3f ms, epilogue (K10 - K1) %.3f ms; "
 """
 
 
+# name -> regex edits of csrc/onsets.cu (K4); "kernel" is the source as it is
+ONSETS_ABLATIONS = {
+    "kernel": [],
+    # the stage, ballots and write alone: the walk's share is the rest
+    "no_walk": [(r"    if \(warp == 0\) \{\n      const unsigned cand", "    if (false) {\n      const unsigned cand")],
+    # each step's lowest bit by __ffs (bit reverse, find leading one) on the chain
+    "ffs_per_step": [(r"below = m \^ \(m - 1ull\);", "below = (2ull << (__ffsll(m) - 1)) - 1ull;")],
+    # no mask carried into the next word: each word left by a seek from the kept frame
+    "seek_every_word": [(r"if \(min_frames <= 64\) \{", "if (false) {")],
+    # one 16-byte load per thread in flight (tiles of 4,064 frames: two at T = 5,163)
+    "one_load_in_flight": [(r"kChunksPerThread = 4;", "kChunksPerThread = 1;")],
+}
+
+# name -> regex edits of csrc/contrast.cu (K9's lane plan); "kernel" as it is
+CONTRAST_ABLATIONS = {
+    "kernel": [],
+    # no early end: all 31 rounds for every frame
+    "all_31_rounds": [(r"    if \(!__any_sync\(kFull, me\.x >= 0 && \(gt - at > 1u \|\| gb - ab > 1u\)\)\) break;\n", "")],
+    # the counts by subtract and shift (bit 31 of t - 1 - x), two partial
+    # sums a selection: no predicates, more registers (a variant, not adopted)
+    "subtract_shift_counts": [(
+        r"    unsigned nt = 0u, nbt = 0u;\n#pragma unroll\n    for \(int s = 0; s < K; \+\+s\) \{\n"
+        r"      nt \+= key\[s\] >= ct;\n      nbt \+= key\[s\] >= cb;\n    \}\n"
+        r"    unsigned c = nt \| \(nbt << 16\);",
+        "    unsigned nt0 = 0u, nt1 = 0u, nb0 = 0u, nb1 = 0u;\n#pragma unroll\n"
+        "    for (int s = 0; s < K; s += 2) {\n"
+        "      nt0 += (ct - 1u - key[s]) >> 31;\n      nb0 += (cb - 1u - key[s]) >> 31;\n"
+        "      nt1 += (ct - 1u - key[s + 1]) >> 31;\n      nb1 += (cb - 1u - key[s + 1]) >> 31;\n"
+        "    }\n    unsigned c = (nt0 + nt1) | ((nb0 + nb1) << 16);")],
+    # loads and the last pass only (no rounds: wrong means), the rounds' share is the rest
+    "no_rounds": [(r"  while \(bit > 0\) \{\n    const unsigned half", "  while (bit > 99) {\n    const unsigned half")],
+}
+
+_ONSETS_ABLATION_RUN = r"""
+import re, numpy as np, torch
+from sonido_sonar_tpu_torch import _build
+from sonido_sonar_tpu_torch.ops import hopper_onsets as H
+from sonido_sonar_tpu_torch.ops import temporal as T
+from sonido_sonar_tpu_torch.ops.hopper_stft import stft_magnitude_hopper
+from sonido_sonar_tpu_torch.ops.stft import spectral_flux
+from sonido_sonar_tpu_torch.utils import parity
+log = _build.build()[1].compiler_log
+regs = re.findall(r"thin_kernel[^']*' for.*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
+x = parity.synth_pcm(128, 30 * 44100, 1, 44100, "cuda")
+flux = T.flux_onset_candidates(spectral_flux(stft_magnitude_hopper(x, 1024, 256)[0]), 0.3).contiguous()
+rand = torch.from_numpy(np.random.default_rng(1).random((128, 5163)) < 0.3).cuda()
+sparse = torch.from_numpy(np.random.default_rng(2).random((128, 5163)) < 0.002).cuda()
+res = []
+for name, cand in (("flux", flux), ("rand30", rand), ("rand002", sparse)):
+    ok = torch.equal(H.thin_onsets_hopper(cand, 8), H.thin_onsets_plain(cand, 8))
+    res.append("%s %.4f ms on the device (%d kept of %d), %s" % (
+        name, parity.device_ms(lambda: H.thin_onsets_hopper(cand, 8), "thin_kernel", 50),
+        int(H.thin_onsets_plain(cand, 8).sum()), int(cand.sum()),
+        "bit-equal to plain" if ok else "DIFFERS from plain"))
+print("; ".join(res) + "; " + ", ".join("%s registers, %s B spilled" % (r, sp) for sp, r in regs))
+"""
+
+
+_CONTRAST_ABLATION_RUN = r"""
+import re, torch
+from sonido_sonar_tpu_torch import _build
+from sonido_sonar_tpu_torch.ops import hopper_contrast as C
+from sonido_sonar_tpu_torch.ops.hopper_stft import stft_magnitude_hopper
+from sonido_sonar_tpu_torch.ops.spectral import contrast_band_edges
+from sonido_sonar_tpu_torch.utils import parity
+log = _build.build()[1].compiler_log
+regs = re.findall(r"band_means_lanes_kernelILi(\d+)E[^']*' for.*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
+mag = stft_magnitude_hopper(parity.synth_pcm(128, 30 * 44100, 1, 44100, "cuda"), 1024, 256, pre_emph=0.97)[0]
+edges = contrast_band_edges(6, 513, 44100)
+got = C.band_select_means_hopper(mag, edges)
+ref = C.band_select_means_plain(mag, edges)
+_, failures = parity.check_band_means(*(t.cpu().numpy() for t in (*got, *ref)))
+t = [parity.device_ms(lambda: C.band_select_means_hopper(mag, edges), "band_means", 10)
+     for _ in range(2)]
+print("K9 %.4f / %.4f ms on the device at %s; parity %s; %s" % (
+    t[0], t[1], tuple(mag.shape), "ok" if not failures else "FAIL (" + failures[0] + ")",
+    ", ".join("K=%s: %s registers, %s B spilled" % (k, r, sp) for k, sp, r in regs if k in ("18", "20", "40"))))
+"""
+
+
 def ablate(source: str, table: dict, run: str, names, card: str) -> int:
     """Build the package from each named variant of csrc/<source> (its
     regex edits in `table`) and print what `run` measures there."""
@@ -353,6 +447,10 @@ def main() -> int:
     ap.add_argument("--ablate-walk", nargs="*", metavar="NAME", choices=list(WALK_ABLATIONS),
                     help="time the DTW backtrack from edited copies of csrc/dtw.cu "
                          "(default: all)")
+    ap.add_argument("--ablate-onsets", nargs="*", metavar="NAME", choices=list(ONSETS_ABLATIONS),
+                    help="time K4 from edited copies of csrc/onsets.cu (default: all)")
+    ap.add_argument("--ablate-contrast", nargs="*", metavar="NAME", choices=list(CONTRAST_ABLATIONS),
+                    help="time K9 from edited copies of csrc/contrast.cu (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: needs a CUDA device")
@@ -376,6 +474,11 @@ def main() -> int:
         return ablate("dtw.cu", DTW_ABLATIONS, _DTW_ABLATION_RUN, args.ablate_dtw, card)
     if args.ablate_walk is not None:
         return ablate("dtw.cu", WALK_ABLATIONS, _WALK_ABLATION_RUN, args.ablate_walk, card)
+    if args.ablate_onsets is not None:
+        return ablate("onsets.cu", ONSETS_ABLATIONS, _ONSETS_ABLATION_RUN, args.ablate_onsets, card)
+    if args.ablate_contrast is not None:
+        return ablate("contrast.cu", CONTRAST_ABLATIONS, _CONTRAST_ABLATION_RUN, args.ablate_contrast,
+                      card)
     sr = 44100
     x = synth_pcm(args.batch, args.seconds * sr, 0, sr, "cuda")
     batched_fingerprint_features(x)
