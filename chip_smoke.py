@@ -104,6 +104,34 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
      under CUDA's sync debug mode (one for batched_hybrid_align, none for
      batched_hybrid_align_device, same offsets and methods)
  22. one torch.profiler step of the fleet's measure_all
+Phases 28-29 run right after phase 12, on its batch:
+ 28. the comparator at full width: FingerprintBatch.comparator_matrix(13)
+     of phase 12's batch, [128, 70] float32 on the card, against the host
+     packer over the materialized fingerprints (utils/parity
+     .COMPARATOR_PACK_SCALED_ATOL after scaling by max(|x|, 1));
+     PackedCorpus.from_batch's content codes equal PackedCorpus.build's;
+     the generate + pack step (bench.py:396-493's generate-batch shape,
+     fenced on the matrix): launch counts (K1 >= 1, K2 >= 2 with one
+     period-amplitude launch), ms per step and audio-hours per wall-hour;
+     search_corpus for 4 queries from the batch on the card and on the
+     same corpus on the CPU: the same ids in the same order (a run of
+     similarities within COMPARATOR_HOST_ATOL compared as a set), the
+     similarities within that bound
+ 29. corpus scale: 262,144 packed rows from numpy (bench.py:585-595), 64
+     of them copies of one row; batched_similarity on 4,096 rows, card
+     against CPU (COMPARATOR_HOST_ATOL); topk_similarity at k = 16 with
+     the CPU's ranking for a random query (runs of scores within that
+     bound compared as sets: the recipe's top scores crowd within ~1e-7)
+     and, exactly, for the duplicated row, whose tied rows come lowest
+     index first; batched_similarity and topk_similarity timed (CUDA
+     events), one blocking search_corpus and search_corpus_stream at
+     depth 4 (host clock, ms per query and comparisons per second; the
+     query's host pack timed apart), one torch.profiler window of the
+     stream; topk_similarity_multi at Q = 64, k = 16 against
+     topk_similarity row by row (as the random query), timed;
+     batched_similarity_detailed at C = 4,096 with 5,164-frame series (a
+     one-frame and a constant series among them), card against CPU; the
+     peak device memory; a call with TF32 matmuls on raises
 Phases 23-27 run right after phase 8, while the B=128 x 30 s PCM is on
 the card:
  23. K10 (K1's feature epilogue) against its plain version, B=4 x 5 s and
@@ -134,7 +162,9 @@ the card:
      turns (K1, K10, K10, K1) with their difference, the feature
      epilogue's time; and K1 against torch.stft
 
-The second-to-last line is {"kernels": [...]}: for each kernel its
+A {"comparator": {...}} line (the card, phases 28-29's gates, launch
+counts and times) comes before the kernels line. The second-to-last line
+is {"kernels": [...]}: for each kernel its
 launches on its path, its largest error against its plain version, its
 time, the plain version's, its bound (the larger of the bytes it must move
 over 3.35 TB/s and its operations over 67 TFLOP/s, the H100's fp32 rate
@@ -1029,6 +1059,261 @@ def run_features(card: str, dev: torch.device, full: torch.Tensor, small: torch.
     return res
 
 
+CORPUS_ROWS = 262_144                     # bench.py:585-595's corpus
+CORPUS_DUPLICATES = 64                    # rows made copies of one row, so scores tie
+SEARCH_QUERIES = 4                        # phase 28's queries from the batch
+MULTI_QUERIES, TOP_K = 64, 16
+
+
+def _same_ranking(what: str, ids: list, sims: list, ref_ids: list, ref_sims: list) -> int:
+    """A ranking (`ids`, descending `sims`) equal to a reference ranking
+    that may run longer: the similarities within utils/parity
+    .COMPARATOR_HOST_ATOL, the ids equal. Where reference similarities
+    lie within that bound of each other, a float32 sum in another order
+    may swap them, so such a run is compared as a set (a subset where the
+    cut falls inside it). Returns the number of such runs."""
+    from sonido_sonar_tpu_torch.utils import parity
+
+    tol, n = parity.COMPARATOR_HOST_ATOL, len(ids)
+    if len(ref_ids) < n:
+        raise AssertionError(f"{what}: {n} rows, the reference has {len(ref_ids)}")
+    err = float(np.abs(np.asarray(sims) - np.asarray(ref_sims[:n])).max(initial=0.0))
+    if err > tol:
+        raise AssertionError(f"{what}: similarities differ by {err:.3g} > {tol}")
+    runs, start = 0, 0
+    for i in range(1, len(ref_ids) + 1):
+        if start >= n:
+            break
+        if i < len(ref_ids) and ref_sims[i - 1] - ref_sims[i] <= tol:
+            continue
+        part, ref = ids[start:min(i, n)], ref_ids[start:i]
+        if not (sorted(part) == sorted(ref) if i <= n else set(part) <= set(ref)):
+            raise AssertionError(f"{what}: rows {start}-{min(i, n) - 1} hold {part}, "
+                                 f"the reference {ref}")
+        runs += i - start > 1
+        start = i
+    return runs
+
+
+def run_comparator(card: str, dev: torch.device, batch, fps, gen_step, kernels: dict) -> dict:
+    """Phases 28-29: the comparator from phase 12's batch at full width,
+    then at corpus scale. Returns the numbers of the comparator line."""
+    from sonido_sonar_tpu_torch.config.config import ComparisonConfig, ContentType
+    from sonido_sonar_tpu_torch.fingerprint import device_compare as DC
+    from sonido_sonar_tpu_torch.fingerprint.comparison import FingerprintComparator
+    from sonido_sonar_tpu_torch.fingerprint.generator import AudioFingerprint
+    from sonido_sonar_tpu_torch.utils import parity
+
+    t_start = time.perf_counter()
+    res = {"card": card}
+    # phase 28: the batch's packed matrix, on the card, against the host packer
+    m = batch.comparator_matrix(13)
+    torch.cuda.synchronize()
+    if tuple(m.shape) != (FULL_B, DC.layout_size(13)) or m.dtype != torch.float32 or not m.is_cuda:
+        raise AssertionError(f"comparator_matrix: {tuple(m.shape)} {m.dtype} on {m.device}")
+    if not bool(torch.isfinite(m).all()):
+        raise AssertionError("comparator_matrix: non-finite values")
+    host, _ = DC.comparator_matrix(fps, 13)
+    scale = np.maximum(np.abs(host), 1.0)
+    res["pack_scaled_err"] = float((np.abs(np32(m) - host) / scale).max())
+    log(f"[comparator_matrix {tuple(m.shape)} on the card vs the host packer] max scaled |diff| "
+        f"{res['pack_scaled_err']:.3g} (limit {parity.COMPARATOR_PACK_SCALED_ATOL})")
+    if not res["pack_scaled_err"] <= parity.COMPARATOR_PACK_SCALED_ATOL:
+        raise AssertionError("the batch's packed matrix disagrees with the host packer")
+    packed = DC.PackedCorpus.from_batch(batch, 13)
+    built = DC.PackedCorpus.build(fps, 13, device=dev)
+    if not torch.equal(packed.codes, built.codes) or packed.codes.dtype != torch.int32:
+        raise AssertionError("PackedCorpus.from_batch and .build give other content codes")
+
+    def pack_step():
+        return gen_step().comparator_matrix(13)
+
+    k1, k2 = kernels["K1"], kernels["K2"]
+    k1.launches = k2.launches = k2.amp_launches = 0
+    pack_step()
+    torch.cuda.synchronize()
+    res["launches"] = {"K1": k1.launches, "K2": k2.launches, "K2amp": k2.amp_launches}
+    log(f"generate + pack launches: {res['launches']}")
+    if res["launches"]["K1"] < 1 or res["launches"]["K2"] < 2 or res["launches"]["K2amp"] < 1:
+        raise AssertionError(f"the generate + pack path missed a kernel: {res['launches']}")
+    step_s = timed_steps(pack_step, SURFACE_STEPS)
+    res["generate_pack_ms"] = report_steps(f"generate + pack B={FULL_B} x {FULL_SECONDS} s", step_s,
+                                           FULL_B * FULL_SECONDS, card)
+    res["generate_pack_audio_h_per_h"] = FULL_B * FULL_SECONDS / float(np.mean(step_s))
+    comp = FingerprintComparator(ComparisonConfig(similarity_threshold=0.0), device=dev)
+    on_cpu = DC.PackedCorpus(packed.fingerprints, packed.matrix.cpu(), packed.codes.cpu(), 13)
+    res["search_tied_runs"] = 0
+    for qi in np.linspace(0, FULL_B - 1, SEARCH_QUERIES).astype(int):
+        got = comp.search_corpus(fps[qi], packed, max_results=12)
+        want = comp.search_corpus(fps[qi], on_cpu, max_results=24)
+        res["search_tied_runs"] += _same_ranking(
+            f"search_corpus, query {qi}", [mm.fingerprint.id for mm in got],
+            [mm.similarity.overall_similarity for mm in got], [mm.fingerprint.id for mm in want],
+            [mm.similarity.overall_similarity for mm in want])
+    log(f"[search_corpus] {SEARCH_QUERIES} queries from the batch: card and CPU rank the same ids "
+        f"({res['search_tied_runs']} runs of similarities within {parity.COMPARATOR_HOST_ATOL} "
+        f"compared as sets)")
+    del packed, built, on_cpu, m
+    torch.cuda.empty_cache()
+
+    # phase 29: a corpus of 262,144 packed rows (bench.py:585-595), 64 of
+    # them copies of row `src`, so a search for that row ties
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED + 29)
+    D = DC.layout_size(13)
+    corpus = rng.standard_normal((CORPUS_ROWS, D)).astype(np.float32)
+    corpus[:, :6] = 1.0  # presence flags
+    corpus[:, 29] = np.abs(corpus[:, 29])
+    src = 5000
+    dups = np.sort(rng.choice(np.delete(np.arange(CORPUS_ROWS), src), CORPUS_DUPLICATES, replace=False))
+    corpus[dups] = corpus[src]
+    X = torch.from_numpy(corpus).to(dev)
+    X_cpu = torch.from_numpy(corpus)
+    w = np.array([0.35, 0.25, 0.10, 0.20, 0.10, 0.10], np.float32)
+    match = torch.ones(CORPUS_ROWS, dtype=torch.bool)
+    qv = rng.standard_normal(D).astype(np.float32)
+    kw = dict(num_mfcc_coeffs=13)
+    n = 4096
+    got = DC.batched_similarity(qv, X[:n], w, match[:n].to(dev), **kw)
+    want = DC.batched_similarity(qv, X_cpu[:n], w, match[:n], **kw)
+    res["similarity_err"] = max(float((got[k].cpu() - want[k]).abs().max())
+                                for k in ("overall", "confidence", "feature_sims"))
+    same = all(torch.equal(got[k].cpu(), want[k]) for k in ("match_class", "feature_present"))
+    log(f"[batched_similarity at C = {n}, card vs CPU] max |diff| {res['similarity_err']:.3g} "
+        f"(limit {parity.COMPARATOR_HOST_ATOL}); classes and gates equal: {same}")
+    if not (res["similarity_err"] <= parity.COMPARATOR_HOST_ATOL and same):
+        raise AssertionError("batched_similarity on the card disagrees with the CPU")
+    match_dev = match.to(dev)
+    # a random query: the recipe's 2-vector cosines crowd its top scores
+    # within ~1e-7 of each other, so runs within the bound compare as sets
+    got = DC.topk_similarity(qv, X, w, match_dev, k=TOP_K, **kw)
+    want = DC.topk_similarity(qv, X_cpu, w, match, k=2 * TOP_K, **kw)
+    res["topk_tied_runs"] = _same_ranking(
+        "topk_similarity, random query", got["index"].tolist(), got["overall"].tolist(),
+        want["index"].tolist(), want["overall"].tolist())
+    log(f"[topk_similarity k = {TOP_K}, random query] card {got['index'].tolist()}, the CPU's ranking "
+        f"({res['topk_tied_runs']} runs of scores within {parity.COMPARATOR_HOST_ATOL} compared as sets)")
+    # the duplicated row: 65 exactly equal scores, lowest index first on both
+    got = DC.topk_similarity(corpus[src], X, w, match_dev, k=TOP_K, **kw)
+    want = DC.topk_similarity(corpus[src], X_cpu, w, match, k=TOP_K, **kw)
+    tied = sorted([src, *dups.tolist()])[:TOP_K]
+    log(f"[topk_similarity k = {TOP_K}, a row with {CORPUS_DUPLICATES} copies] card "
+        f"{got['index'].tolist()}, CPU {want['index'].tolist()}")
+    if not (got["index"].tolist() == want["index"].tolist() == tied
+            and len(set(got["overall"].tolist())) == 1):
+        raise AssertionError(f"the tied rows are not lowest index first: expected {tied}")
+    res["topk_ties_lowest_first"] = True
+
+    res["similarity_ms"] = cuda_ms(lambda: DC.batched_similarity(qv, X, w, match_dev, **kw), 10)
+    res["topk_ms"] = cuda_ms(lambda: DC.topk_similarity(qv, X, w, match_dev, k=TOP_K, **kw), 10)
+    # the public search: placeholder fingerprints for the random rows, real
+    # queries from the batch (packed on the host per search)
+    news = DC.content_code(ContentType.NEWS)
+    shells = [AudioFingerprint(f"r{i}", "", ContentType.NEWS, 0.0, 30.0, SR, HOP, 1, None)
+              for i in range(CORPUS_ROWS)]
+    big = DC.PackedCorpus(shells, X, torch.full((CORPUS_ROWS,), news, dtype=torch.int32, device=dev), 13)
+    queries = [fps[i] for i in range(0, FULL_B, FULL_B // 8)]
+    comp.search_corpus(queries[0], big, max_results=12)
+    one = []
+    for q in queries:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comp.search_corpus(q, big, max_results=12)
+        one.append(time.perf_counter() - t0)
+    res["search_blocking_ms"] = 1e3 * float(np.median(one))
+    stream = [queries[i % len(queries)] for i in range(32)]
+    list(comp.search_corpus_stream(stream[:8], big, max_results=12, depth=4))  # pinned buffers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = list(comp.search_corpus_stream(stream, big, max_results=12, depth=4))
+    res["search_pipelined_ms"] = 1e3 * (time.perf_counter() - t0) / len(stream)
+    packs = []
+    for q in queries:
+        t0 = time.perf_counter()
+        DC.pack_comparator_stats(q, 13)
+        packs.append(time.perf_counter() - t0)
+    res["query_pack_ms"] = 1e3 * float(np.median(packs))
+    for q, got in zip(stream[:len(queries)], streamed):
+        want = comp.search_corpus(q, big, max_results=12)
+        if [mm.fingerprint.id for mm in got] != [mm.fingerprint.id for mm in want]:
+            raise AssertionError("search_corpus_stream and search_corpus rank other ids")
+    res["comparisons_per_s_pipelined"] = CORPUS_ROWS / (1e-3 * res["search_pipelined_ms"])
+    log(f"corpus search at C = {CORPUS_ROWS}: batched_similarity {res['similarity_ms']:.3f} ms "
+        f"({CORPUS_ROWS / (1e-3 * res['similarity_ms']) / 1e6:.0f} M comparisons/s), "
+        f"topk_similarity {res['topk_ms']:.3f} ms (CUDA events); search_corpus blocking "
+        f"{res['search_blocking_ms']:.3f} ms (median of {len(one)}), pipelined at depth 4 "
+        f"{res['search_pipelined_ms']:.3f} ms per query = "
+        f"{res['comparisons_per_s_pipelined'] / 1e6:.0f} M comparisons/s; the query's host pack "
+        f"{res['query_pack_ms']:.3f} ms of each [{card}]")
+    profile_step("search_corpus_stream, 32 queries",
+                 lambda: list(comp.search_corpus_stream(stream, big, max_results=12, depth=4)))
+    del shells, big, streamed
+
+    qmat = rng.standard_normal((MULTI_QUERIES, D)).astype(np.float32)
+    wmat = np.tile(w, (MULTI_QUERIES, 1))
+    q_codes = np.zeros(MULTI_QUERIES, np.int32)
+    c_codes = torch.zeros(CORPUS_ROWS, dtype=torch.int32, device=dev)
+    multi = DC.topk_similarity_multi(qmat, X, wmat, q_codes, c_codes, k=TOP_K, **kw)
+    res["multi_tied_runs"] = 0
+    for i in range(MULTI_QUERIES):
+        single = DC.topk_similarity(qmat[i], X, w, match_dev, k=2 * TOP_K, **kw)
+        res["multi_tied_runs"] += _same_ranking(
+            f"topk_similarity_multi row {i}", multi["index"][i].tolist(), multi["overall"][i].tolist(),
+            single["index"].tolist(), single["overall"].tolist())
+    res["multi_ms"] = cuda_ms(lambda: DC.topk_similarity_multi(qmat, X, wmat, q_codes, c_codes,
+                                                               k=TOP_K, **kw), 5)
+    log(f"[topk_similarity_multi Q = {MULTI_QUERIES}, k = {TOP_K}] rows equal topk_similarity's "
+        f"({res['multi_tied_runs']} runs of scores within {parity.COMPARATOR_HOST_ATOL} compared as "
+        f"sets); {res['multi_ms']:.3f} ms = "
+        f"{MULTI_QUERIES * CORPUS_ROWS / (1e-3 * res['multi_ms']) / 1e6:.0f} M comparisons/s [{card}]")
+    del multi
+
+    # the quality chain at C = 4,096 with 5,164-frame series, card vs CPU
+    t = (FULL_SECONDS * SR - WINDOW) // HOP + 1
+    series = rng.uniform(200, 8000, (n + 1, 2, t)).astype(np.float32)
+    lens = rng.integers(t // 2, t + 1, (n + 1, 2)).astype(np.int32)
+    lens[1] = 1                                      # a one-frame series: skipped
+    series[2, 1] = 818.2999877929688                 # a constant series: skipped
+    avail = (rng.random((n + 1, 6)) < 0.9).astype(np.float32)
+    dur = rng.uniform(5, 60, n + 1).astype(np.float32)
+    outs = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        def on(a, d=d):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(d)
+
+        out = DC.batched_similarity_detailed(
+            corpus[src], on(corpus[:n]), w, on(np.ones(n, bool)), avail[0], on(avail[1:]),
+            np.float32(dur[0]), on(dur[1:]), series[0], on(series[1:]), lens[0], on(lens[1:]), **kw)
+        outs[where] = {k: v.cpu() for k, v in out.items()}
+    errs = {k: float((outs["card"][k].float() - outs["cpu"][k].float()).abs().max()) for k in outs["cpu"]}
+    res["detailed_err"] = errs
+    log(f"[batched_similarity_detailed C = {n}, T = {t}, card vs CPU] " + json.dumps(errs))
+    for k, e in errs.items():
+        limit = (parity.COMPARATOR_COHERENCE_ATOL if k == "spectral_coherence" else
+                 parity.COMPARATOR_QUALITY_ATOL if k in ("temporal_alignment", "noise_level",
+                                                          "dynamic_range_match", "confidence")
+                 else parity.COMPARATOR_HOST_ATOL)
+        if not e <= limit:
+            raise AssertionError(f"batched_similarity_detailed {k}: card vs CPU {e:.3g} > {limit}")
+    res["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    log(f"phase 29 peak device memory {res['peak_mib']:.0f} MiB [{card}]")
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        DC.batched_similarity(qv, X[:n], w, match_dev[:n], **kw)
+    except ValueError as e:
+        log(f"[TF32 on] batched_similarity raised: {e}")
+    else:
+        raise AssertionError("batched_similarity ran on the card with TF32 on")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    del X, X_cpu, corpus
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"phases 28-29 took {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     card = card_line()                                        # phase 1
@@ -1389,6 +1674,7 @@ def main() -> int:
         if one[k].shape != shape[1:]:
             raise AssertionError(f"materialized {k}: {one[k].shape}, expected {shape[1:]}")
     log(f"[generator news] materialized {len(fps)} fingerprints of the schema's shapes")
+    comparator = run_comparator(card, dev, batch, fps, gen_step, {"K1": k1, "K2": k2})  # 28-29
     del batch, fps, feats
     gen_ms = report_steps(f"generator news B={FULL_B} x {FULL_SECONDS} s", timed_steps(gen_step, SURFACE_STEPS),
                           FULL_B * FULL_SECONDS, card)
@@ -1552,6 +1838,7 @@ def main() -> int:
             f"launches {k['launches']} [{card}]")
     log(f"main path step: default {fslice['step_ms_default']:.2f} ms, feature epilogue "
         f"{fslice['step_ms_feat']:.2f} ms [{card}]")
+    print(json.dumps({"comparator": comparator}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

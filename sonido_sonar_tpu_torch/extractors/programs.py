@@ -39,7 +39,8 @@ from sonido_sonar_tpu_torch.ops.hopper_stft import stft_magnitude_hopper
 from sonido_sonar_tpu_torch.ops.mfcc import MFCCParams, mfcc
 from sonido_sonar_tpu_torch.ops.pitch import detect_pitch_track
 from sonido_sonar_tpu_torch.ops.speech import analyze_speech
-from sonido_sonar_tpu_torch.parallel.pipeline import require_fp32_matmuls, spectral_tilt_1024
+from sonido_sonar_tpu_torch.parallel.pipeline import spectral_tilt_1024
+from sonido_sonar_tpu_torch.utils.device import require_fp32_matmuls
 
 
 def speech_extractor_program(

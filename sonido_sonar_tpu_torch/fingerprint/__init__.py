@@ -12,3 +12,9 @@ from sonido_sonar_tpu_torch.fingerprint.generator import (  # noqa: F401
     FingerprintBatch,
     FingerprintGenerator,
 )
+from sonido_sonar_tpu_torch.fingerprint.comparison import (  # noqa: F401
+    FingerprintComparator,
+    Match,
+    SimilarityResult,
+    get_similarity_statistics,
+)

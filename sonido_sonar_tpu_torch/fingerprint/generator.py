@@ -73,6 +73,7 @@ class FingerprintBatch:
 
     fingerprints: List[AudioFingerprint]
     groups: List[Tuple[ContentType, List[int], ExtractedFeatures]]
+    _cm_cache: Optional[Tuple[int, torch.Tensor]] = field(default=None, init=False, repr=False)
 
     def materialize(self) -> List[AudioFingerprint]:
         """Fill every fingerprint's `features` with host numpy (one pull
@@ -83,11 +84,28 @@ class FingerprintBatch:
                 self.fingerprints[i].features = map_tensors(lambda a, p=pos: a[p], feats_np)
         return self.fingerprints
 
-    def comparator_matrix(self, num_mfcc_coeffs: int = 13):
-        raise NotImplementedError(
-            "FingerprintBatch.comparator_matrix needs the device comparator, "
-            "not ported yet (ROADMAP queue 1, item 12: fingerprint/device_compare.py)"
-        )
+    def comparator_matrix(self, num_mfcc_coeffs: int = 13) -> torch.Tensor:
+        """Packed comparator statistics [B, D] float32 in the
+        `device_compare` layout, on the features' device: the
+        corpus-ready output without the features leaving it. Row order
+        matches `fingerprints`. A single group (every clip one content
+        type, the common corpus) is its pack as it is; several groups
+        are packed per group, then put back in clip order by one gather
+        on the inverse permutation. Cached per `num_mfcc_coeffs`."""
+        if self._cm_cache is not None and self._cm_cache[0] == num_mfcc_coeffs:
+            return self._cm_cache[1]
+        from sonido_sonar_tpu_torch.fingerprint.device_compare import pack_comparator_stats_batch
+
+        packs = [pack_comparator_stats_batch(features, num_mfcc_coeffs)
+                 for _, _, features in self.groups]
+        if len(packs) == 1:
+            out = packs[0]
+        else:
+            order = np.concatenate([np.asarray(idxs, np.int64) for _, idxs, _ in self.groups])
+            inv = torch.as_tensor(np.argsort(order), device=packs[0].device)
+            out = torch.cat(packs).index_select(0, inv)
+        self._cm_cache = (num_mfcc_coeffs, out)
+        return out
 
 
 class FingerprintGenerator:

@@ -45,20 +45,15 @@ from sonido_sonar_tpu_torch.ops.stft import spectral_flux
 from sonido_sonar_tpu_torch.ops.tables import device_table
 from sonido_sonar_tpu_torch.ops.temporal import energy_variance
 from sonido_sonar_tpu_torch.ops.tonal import chord_matrix
-from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, as_float32
+from sonido_sonar_tpu_torch.utils.device import (
+    DEFAULT_DEVICE,
+    Device,
+    as_float32,
+    require_fp32_matmuls,
+)
 
 _EPS = 1e-10
 FEAT_EPILOGUE_ENV = "SONIDO_ENABLE_FEAT_EPILOGUE"
-
-
-def require_fp32_matmuls(pcm: torch.Tensor, what: str) -> None:
-    """Raise on a CUDA input while TF32 matmuls are on: the DFT, mel,
-    DCT, chroma and chord matmuls feed logs and ratios."""
-    if pcm.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise ValueError(
-            f"{what} needs true float32 matmuls: "
-            "set torch.backends.cuda.matmul.allow_tf32 = False"
-        )
 
 
 def feat_epilogue_enabled(mfcc_coefficients: int = 13) -> bool:

@@ -5,10 +5,14 @@ tables (windowed DFT basis, mel filterbank, DCT, lifter, chroma fold,
 frequency grid) and the config. `constants_from_numpy` takes the JAX
 package's tables as numpy arrays and returns them as the port's tensors,
 so they can be held to the tables the port builds itself.
-`feature_config_from_dict` and `fingerprint_config_from_dict` read
-configs written by the JAX package's `config.asdict`;
-`features_to_numpy` flattens an ExtractedFeatures of either package into
-one dict of numpy arrays, so the tests compare both with one function.
+`feature_config_from_dict`, `fingerprint_config_from_dict` and
+`comparison_config_from_dict` read configs written by the JAX package's
+`config.asdict`; `features_to_numpy` flattens an ExtractedFeatures of
+either package into one dict of numpy arrays, so the tests compare both
+with one function. The comparator has no weights either: its state is
+the corpus, and `fingerprint_from_reference` carries a fingerprint of
+the JAX package (or any object of its fields) across, so both
+comparators score the same corpus.
 """
 
 from __future__ import annotations
@@ -20,12 +24,15 @@ import numpy as np
 import torch
 
 from sonido_sonar_tpu_torch.config.config import (
+    ComparisonConfig,
     ContentAwareConfig,
     ContentType,
     FeatureConfig,
     FingerprintConfig,
     WindowType,
 )
+from sonido_sonar_tpu_torch.extractors import features as F
+from sonido_sonar_tpu_torch.fingerprint.generator import AudioFingerprint
 
 CONSTANT_KEYS = (
     "dft_basis",       # [W, 2F] windowed rDFT basis (ops/stft._windowed_dft_matrix)
@@ -97,6 +104,69 @@ def fingerprint_config_from_dict(d: Mapping) -> FingerprintConfig:
             ca["default_content_type"] = ContentType(ca["default_content_type"])
         kw["content_aware"] = ContentAwareConfig(**ca)
     return FingerprintConfig(**kw)
+
+
+def comparison_config_from_dict(d: Mapping) -> ComparisonConfig:
+    """ComparisonConfig from a dict such as the JAX package's
+    `config.asdict(ComparisonConfig(...))` (the content type as its
+    value, the weights as lists). Unknown keys raise."""
+    _check_fields(ComparisonConfig, d)
+    kw = dict(d)
+    if "content_type" in kw:
+        kw["content_type"] = ContentType(kw["content_type"])
+    if "feature_weights" in kw:
+        kw["feature_weights"] = tuple((str(name), float(w)) for name, w in kw["feature_weights"])
+    return ComparisonConfig(**kw)
+
+
+_SUBSTRUCTS = {
+    "spectral_features": F.SpectralFeatures,
+    "speech_features": F.SpeechFeatures,
+    "temporal_features": F.TemporalFeatures,
+    "energy_features": F.EnergyFeatures,
+    "harmonic_features": F.HarmonicFeatures,
+}
+
+
+def _features_from_reference(src: Any):
+    """The port's ExtractedFeatures from any object with its fields: every
+    array leaf as numpy (`np.asarray`, so numpy, lists and arrays of
+    other frameworks that hand numpy their buffer), None kept."""
+
+    def convert(cls, obj):
+        kw = {}
+        for f in dataclasses.fields(cls):
+            v = getattr(obj, f.name, None)
+            if f.name == "metadata":
+                kw[f.name] = dict(v or {})
+            elif v is None:
+                kw[f.name] = None
+            elif dataclasses.is_dataclass(v):
+                kw[f.name] = convert(_SUBSTRUCTS[f.name], v)
+            else:
+                kw[f.name] = np.asarray(v)
+        return cls(**kw)
+
+    return None if src is None else convert(F.ExtractedFeatures, src)
+
+
+def fingerprint_from_reference(fp: Any) -> AudioFingerprint:
+    """The port's AudioFingerprint from any object with the fields of
+    `AudioFingerprint` (the JAX package's, read by duck typing): the
+    content type by its value, the features' leaves as numpy, the
+    metadata a shallow copy."""
+    return AudioFingerprint(
+        id=fp.id,
+        stream_url=fp.stream_url,
+        content_type=ContentType(getattr(fp.content_type, "value", fp.content_type)),
+        timestamp=fp.timestamp,
+        duration=fp.duration,
+        sample_rate=fp.sample_rate,
+        hop_size=fp.hop_size,
+        channels=fp.channels,
+        features=_features_from_reference(fp.features),
+        metadata=dict(fp.metadata or {}),
+    )
 
 
 def flatten_features(features: Any, prefix: str = "") -> Dict[str, Any]:

@@ -25,3 +25,15 @@ def as_float32(x, device: Device = DEFAULT_DEVICE) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(torch.float32)
     return torch.as_tensor(np.asarray(x, dtype=np.float32), device=torch.device(device))
+
+
+def require_fp32_matmuls(t: torch.Tensor, what: str) -> None:
+    """Raise on a CUDA input while TF32 matmuls are on: the matmuls of
+    the feature paths feed logs and ratios, and the comparator's carry
+    its cosines; TF32's ~1e-3 error is past their parity bounds, and the
+    CPU tests cannot see it."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError(
+            f"{what} needs true float32 matmuls: "
+            "set torch.backends.cuda.matmul.allow_tf32 = False"
+        )

@@ -566,6 +566,38 @@ DTW_PATH_COST_ATOL = 1e-5
 # (tests/test_batched_alignment.py:169-170). Offsets (integers) and the
 # winning method must be equal.
 ALIGN_SCORE_ATOL = 1e-4
+# The comparator. The host comparator is float64 numpy in both packages
+# (the same expressions in the same order): equal, not close. The
+# device passes are float32:
+# - against the host's float64 (tests/test_device_compare.py:28):
+#   similarities, feature distances and confidences within 2e-6 (a
+#   cosine over <= 70 float32 products rounds at ~1e-7, the weighted
+#   mean adds a few ulp); the quality chain's temporal alignment, noise
+#   level, dynamic range match and its confidence within 1e-5 (a sample
+#   std of six float32 sims); spectral coherence within 2e-4 (a
+#   two-pass float32 Pearson over up to 5,164 frames against float64
+#   corrcoef; the constant-series floor of device_compare keeps a
+#   series the host skips skipped);
+# - the packed matrix from a batch of device features against the host
+#   packer over the same features pulled to the host: 2e-4 after
+#   scaling each entry by max(|x|, 1) (float32 means and sample stds
+#   over 5,164 frames against float64);
+# - the port against JAX, both on the same float32 matrix on the CPU:
+#   the same expressions, with the selector matmuls and reductions
+#   summed in another order; at most 3.0e-7 over 6 queries x 128
+#   candidates (measured), so 1e-6; match classes, gates and top-k
+#   indices equal (a stable sort: ties lowest index first in both).
+COMPARATOR_HOST_ATOL = 2e-6
+COMPARATOR_QUALITY_ATOL = 1e-5
+COMPARATOR_COHERENCE_ATOL = 2e-4
+COMPARATOR_PACK_SCALED_ATOL = 2e-4
+COMPARATOR_PORT_ATOL = 1e-6
+# The opt-in MFCC variants, port against JAX: float32 Pearson
+# correlations over <= 60 frames and a dense float32 DTW distance
+# (summed in another order), then a mean or exp(-d); at most 5.9e-6
+# (measured, identical sequences, where each local distance is the
+# float32 cancellation of |q|^2 + |r|^2 - 2 q.r).
+COMPARATOR_MFCC_VARIANT_ATOL = 1e-5
 
 
 def check_fill(got, ref) -> Report:

@@ -159,14 +159,17 @@ def test_generator_detects_and_groups_like_jax(clips):
     x = np.concatenate([clips["babble"][:2], clips["music"][:1]])
     audios, jaudios = _pair(x)
     batch = FingerprintGenerator(device="cpu").generate_fingerprints_batch(audios, materialize=False)
-    jfps = JGenerator().generate_fingerprints_batch(jaudios)
+    jbatch = JGenerator().generate_fingerprints_batch(jaudios, materialize=False)
     assert isinstance(batch, FingerprintBatch) and len(batch.groups) == 2
     assert all(fp.features is None for fp in batch.fingerprints)
     fps = batch.materialize()
     assert [f.content_type.value for f in fps] == ["news", "news", "music"]
-    _compare_fps(fps, jfps, x, 2048, 512)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        batch.comparator_matrix()
+    _compare_fps(fps, jbatch.materialize(), x, 2048, 512)
+    # two groups, so the pack is put back in clip order: the same [3, 70]
+    # matrix as JAX's, each entry scaled by max(|x|, 1)
+    got, want = batch.comparator_matrix(13).numpy(), np.asarray(jbatch.comparator_matrix(13))
+    scale = np.maximum(np.abs(want), 1.0)
+    np.testing.assert_allclose(got / scale, want / scale, atol=parity.COMPARATOR_PACK_SCALED_ATOL, rtol=0)
 
 
 def test_generate_fingerprints_mixed_matches_jax(clips):
