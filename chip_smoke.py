@@ -162,8 +162,34 @@ the card:
      turns (K1, K10, K10, K1) with their difference, the feature
      epilogue's time; and K1 against torch.stft
 
+Phases 30-32 run right after phase 14, on phase 12's clips:
+ 30. the extractor class compositions at full width, B=128 x 30 s,
+     1024/256: FingerprintGenerator(strict_reference_routing=False) on a
+     sports-labelled and a mixed-labelled batch,
+     generate_fingerprints_batch(pcm_matrix=..., materialize=False) then
+     materialize() (the class composition over ops.stft.stft); then
+     SpeechFeatureExtractor(is_news=True) and MusicFeatureExtractor
+     extract_features over stft of the same PCM, with the generator's
+     news and music feature configs: launch counts (sports K2 >= 1;
+     mixed and speech K2 >= 2 with one period-amplitude launch; music
+     K1 >= 1 and K4 >= 1), the schema's shapes and dtypes, finite
+     values, sports' per-clip excitement lists on every fingerprint, ms
+     per step (3 steps), audio-hours per wall-hour, peak memory, and one
+     torch.profiler step of each path (busy share, top kernels)
+ 31. the four compositions at [2, 44100] on the card against the CPU
+     (utils/parity.check_extracted and check_metadata); the speech and
+     music programs against their compositions on the card; the music
+     composition at 16 kHz ([2, 16000], ZCR by the exact gate)
+ 32. STFTStreamer at 1024/256 on the card: a 60 s stream pushed in 1 s
+     chunks in legacy and in block mode (64 frames), K1 launched once a
+     result (legacy) or a block, the concatenated magnitudes against
+     stft of the whole signal (utils/parity.MAG_ATOL_SCALE), ms per push;
+     a 4096-window streamer takes the stft route with no K1 launch
+
 A {"comparator": {...}} line (the card, phases 28-29's gates, launch
-counts and times) comes before the kernels line. The second-to-last line
+counts and times) and an {"extractor_classes": {...}} line (phases
+30-32's launch counts, step times, peak memory and the streamer's
+numbers) come before the kernels line. The second-to-last line
 is {"kernels": [...]}: for each kernel its
 launches on its path, its largest error against its plain version, its
 time, the plain version's, its bound (the larger of the bytes it must move
@@ -439,6 +465,209 @@ def music_schema(b: int, n: int) -> dict:
 
 
 MUSIC_INTS = {"chord_index": torch.int32, "onset_mask": torch.bool}
+
+
+def music_class_schema(b: int, n: int) -> dict:
+    """The music composition's ExtractedFeatures fields (the music
+    content's feature config: every family but speech) at 1024/256, as
+    features_to_numpy paths -> shapes."""
+    t = (n - WINDOW) // HOP + 1
+    frame = [f"spectral_features.{k}" for k in (
+        "spectral_centroid", "spectral_rolloff", "spectral_bandwidth", "spectral_flatness",
+        "spectral_crest", "spectral_slope", "spectral_flux", "zero_crossing_rate")]
+    frame += [f"temporal_features.{k}" for k in ("rms_energy", "crest_factor", "onset_mask", "attack_time")]
+    frame += [f"energy_features.{k}" for k in (
+        "short_time_energy", "energy_entropy", "low_energy_ratio", "high_energy_ratio")]
+    frame += [f"harmonic_features.{k}" for k in (
+        "pitch_estimate", "pitch_confidence", "voicing_strength", "harmonic_ratio",
+        "inharmonicity_ratio", "tonal_centroid")]
+    scalar = [f"temporal_features.{k}" for k in (
+        "peak_amplitude", "average_amplitude", "dynamic_range", "silence_ratio", "onset_density",
+        "tempo_bpm")] + ["energy_features.energy_variance", "energy_features.loudness_range"]
+    return {**{k: (b, t) for k in frame}, **{k: (b,) for k in scalar},
+            "mfcc": (b, t, 13), "chroma_features": (b, t, 12),
+            "spectral_features.spectral_contrast": (b, t, 6),
+            "temporal_features.envelope_shape": (b, (n - max(n // t, 1)) // HOP + 1)}
+
+
+CLASS_STEPS = 3                       # timed steps of each phase-30 path
+STREAM_SECONDS, STREAM_BLOCK = 60, 64  # phase 32: a 60 s stream in 1 s pushes
+
+
+def run_extractor_classes(card: str, dev: torch.device, clips: torch.Tensor, gen_cfg) -> dict:
+    """Phases 30-32: the extractor class compositions at full width on
+    `clips` (the generator under non-strict routing on sports- and
+    mixed-labelled batches, the speech and music compositions over
+    `stft`), the four compositions on the card against the CPU and the
+    speech and music programs against their compositions, and
+    STFTStreamer on K1. Returns the {"extractor_classes": ...} numbers."""
+    from sonido_sonar_tpu_torch.config.config import ContentType
+    from sonido_sonar_tpu_torch.extractors import (
+        MixedFeatureExtractor,
+        MusicFeatureExtractor,
+        SpeechFeatureExtractor,
+        SportsFeatureExtractor,
+    )
+    from sonido_sonar_tpu_torch.fingerprint import FingerprintGenerator
+    from sonido_sonar_tpu_torch.io.audio import AudioData, AudioMetadata
+    from sonido_sonar_tpu_torch.ops import hopper_onsets, hopper_stft, hopper_yin
+    from sonido_sonar_tpu_torch.ops.filters import dc_removal, pre_emphasis_for_content
+    from sonido_sonar_tpu_torch.ops.stft import STFTStreamer, stft
+    from sonido_sonar_tpu_torch.utils import parity
+    from sonido_sonar_tpu_torch.utils.convert import features_to_numpy, flatten_features
+
+    started = time.perf_counter()
+    k1, k2, k4 = (hopper_stft.stft_magnitude_hopper, hopper_yin.yin_pitch_hopper,
+                  hopper_onsets.thin_onsets_hopper)
+
+    def zero_counts():
+        k1.launches = k2.launches = k2.amp_launches = k4.launches = 0
+
+    def counts():
+        return {"K1": k1.launches, "K2": k2.launches, "K2amp": k2.amp_launches, "K4": k4.launches}
+
+    b, n = clips.shape
+    t = (n - WINDOW) // HOP + 1
+    news = news_schema(b, n)
+    onsets = {"temporal_features.onset_mask": torch.bool}
+    schemas = {
+        "sports": ({k: v for k, v in news.items() if not k.startswith("speech_features.")}, onsets),
+        "mixed": ({**news, "chroma_features": (b, t, 12)}, NEWS_INTS),
+        "speech": (news, NEWS_INTS),
+        "music": (music_class_schema(b, n), onsets),
+    }
+    # the launches each path must show at least
+    need = {"sports": {"K2": 1}, "mixed": {"K2": 2, "K2amp": 1}, "speech": {"K2": 2, "K2amp": 1},
+            "music": {"K1": 1, "K4": 1}}
+    gen = FingerprintGenerator(gen_cfg, strict_reference_routing=False)
+    classes = {  # on the generator's feature config of each content type
+        "speech": SpeechFeatureExtractor(gen._feature_config_for(ContentType.NEWS, SR), is_news=True),
+        "music": MusicFeatureExtractor(gen._feature_config_for(ContentType.MUSIC, SR)),
+        "sports": SportsFeatureExtractor(gen._feature_config_for(ContentType.SPORTS, SR)),
+        "mixed": MixedFeatureExtractor(gen._feature_config_for(ContentType.MIXED, SR)),
+    }
+
+    def compose(label, x, sr=SR):
+        return classes[label].extract_features(stft(x, WINDOW, HOP, sample_rate=sr), x, sr)
+
+    def generate(label):
+        audios = [AudioData(pcm=clips[i], sample_rate=SR,
+                            metadata=AudioMetadata(extra={"content_type": label})) for i in range(b)]
+        return lambda: gen.generate_fingerprints_batch(audios, pcm_matrix=clips, materialize=False)
+
+    paths = {"sports": generate("sports"), "mixed": generate("mixed"),
+             "speech": lambda: compose("speech", clips), "music": lambda: compose("music", clips)}
+    res = {"card": card, "B": b, "seconds_of_audio": FULL_SECONDS, "paths": {}}
+    for label, step in paths.items():                          # phase 30
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        out = step()
+        torch.cuda.synchronize()
+        launches = counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[{label} composition B={b} x {FULL_SECONDS} s] launches {launches}, peak device "
+            f"memory {peak_gib:.2f} GiB [{card}]")
+        short = {k: launches[k] for k, least in need[label].items() if launches[k] < least}
+        if short:
+            raise AssertionError(f"the {label} composition missed a kernel: {short}, needs {need[label]}")
+        schema, ints = schemas[label]
+        if label in ("sports", "mixed"):
+            (ct, idxs, feats), = out.groups
+            if ct.value != label or len(idxs) != b:
+                raise AssertionError(f"generator grouped {ct} x {len(idxs)}")
+            if feats.metadata["extractor_type"] != label:
+                raise AssertionError(f"{label} group: extractor_type {feats.metadata['extractor_type']}")
+        else:
+            feats = out
+        check_surface(f"{label} composition", flatten_features(feats), schema, ints)
+        if label in ("sports", "mixed"):
+            fps = out.materialize()
+            one = features_to_numpy(fps[-1].features)
+            for k, shape in schema.items():
+                if one[k].shape != shape[1:]:
+                    raise AssertionError(f"materialized {label} {k}: {one[k].shape}, expected {shape[1:]}")
+            if label == "sports":
+                for key in ("excitement_variance", "excitement_entropy"):
+                    vals = feats.metadata[key]
+                    if (len(vals) != b or not np.isfinite(vals).all()
+                            or any(fp.features.metadata[key] != vals for fp in fps)):
+                        raise AssertionError(f"sports metadata {key}: not the group's {b} finite values")
+            log(f"[{label} generator] materialized {len(fps)} fingerprints of the schema's shapes")
+            del fps, one
+        del out, feats
+        ms = report_steps(f"{label} composition B={b} x {FULL_SECONDS} s",
+                          timed_steps(step, CLASS_STEPS), b * FULL_SECONDS, card)
+        profile_step(f"{label} composition", step)
+        res["paths"][label] = {"launches": launches, "ms_per_step": ms,
+                               "audio_h_per_wall_h": b * FULL_SECONDS / (ms / 1e3),
+                               "peak_gib": peak_gib}
+    torch.cuda.empty_cache()
+
+    def near(label, x):
+        if label == "music":
+            pre = pre_emphasis_for_content(dc_removal(x), "music").numpy()
+            return parity.near_zero_frames(pre, WINDOW, HOP, 0.0, parity.DC_NEAR_ZERO)
+        return parity.near_zero_frames(x.numpy(), WINDOW, HOP, 0.96 if label == "sports" else 0.97)
+
+    def hold(got, ref, label, x, sr, what):
+        require(parity.check_extracted(features_to_numpy(got), features_to_numpy(ref), sr, WINDOW,
+                                       near_zero=near(label, x), n_samples=x.shape[-1]), what)
+        require(parity.check_metadata(got.metadata, ref.metadata), what + ", metadata")
+
+    small = torch.cat([parity.voiced_pcm(1, SR, SEED + 10), parity.harmonic_clips(1, SR, SEED + 11)])
+    for label in classes:                                      # phase 31
+        on_card = compose(label, small.to(dev))
+        hold(on_card, compose(label, small), label, small, SR, f"{label} composition [2, {SR}], card vs CPU")
+        if label in ("speech", "music"):
+            hold(classes[label].extract_features_from_pcm(small.to(dev), SR), on_card, label, small, SR,
+                 f"{label} program against its composition [2, {SR}] on the card")
+    clips16 = parity.harmonic_clips(2, 16000, SEED + 8, 16000)
+    on_card, on_cpu = compose("music", clips16.to(dev), 16000), compose("music", clips16, 16000)
+    hold(on_card, on_cpu, "music", clips16, 16000, "music composition [2, 16000] at 16 kHz, card vs CPU (ZCR exact)")
+    zcr = (on_card.spectral_features.zero_crossing_rate.cpu() == on_cpu.spectral_features.zero_crossing_rate)
+    log(f"[music composition at 16 kHz] ZCR bit-equal on {int(zcr.sum())} of {zcr.numel()} frames")
+
+    stream = parity.synth_pcm(1, STREAM_SECONDS * SR, SEED + 12, SR)[0].numpy()  # phase 32
+    res["streamer"] = {}
+    for mode, w, hop, block in (("legacy", WINDOW, HOP, 0), ("block", WINDOW, HOP, STREAM_BLOCK),
+                                ("stft_route_4096", 4096, 1024, 0)):
+        streamer = STFTStreamer(w, hop, sample_rate=SR, block_frames=block)
+        if streamer.route != ("stft" if w > 2048 else "k1"):
+            raise AssertionError(f"STFTStreamer {w}/{hop} took the {streamer.route} route")
+        whole = stft(torch.from_numpy(stream).to(dev), w, hop, sample_rate=SR).magnitude
+        for run in ("checked", "timed"):
+            streamer.reset()
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts = [streamer.push(stream[i:i + SR]) for i in range(0, len(stream), SR)]
+            parts.append(streamer.flush())
+            torch.cuda.synchronize()
+            ms_per_push = 1e3 * (time.perf_counter() - t0) / (len(parts) - 1)
+        mags = [r.magnitude for r in parts if r is not None]
+        got = torch.cat(mags)
+        if got.shape != whole.shape:
+            raise AssertionError(f"STFTStreamer {mode}: {tuple(got.shape)} frames, stft {tuple(whole.shape)}")
+        err = float((got - whole).abs().max())
+        scale = float(whole.abs().max())
+        want_k1 = len(mags) if streamer.route == "k1" else 0
+        if block:
+            want_k1 = sum(m.shape[0] // block + (m.shape[0] % block > 0) for m in mags)
+        log(f"[STFTStreamer {mode} {w}/{hop}, {STREAM_SECONDS} s in 1 s pushes] {got.shape[0]} frames, "
+            f"K1 launches {k1.launches}, max |mag - stft| {err:.4g} = {err / scale:.3g} of the largest "
+            f"(limit {parity.MAG_ATOL_SCALE}), {ms_per_push:.3f} ms per push [{card}]")
+        if k1.launches != want_k1:
+            raise AssertionError(f"STFTStreamer {mode}: {k1.launches} K1 launches, expected {want_k1}")
+        if not err <= parity.MAG_ATOL_SCALE * scale:
+            raise AssertionError(f"STFTStreamer {mode}: magnitudes disagree with stft of the whole signal")
+        res["streamer"][mode] = {"window": w, "hop": hop, "block_frames": block, "frames": got.shape[0],
+                                 "k1_launches": k1.launches, "max_abs_err": err,
+                                 "ms_per_push": ms_per_push}
+    res["seconds"] = time.perf_counter() - started
+    log(f"phases 30-32 took {res['seconds']:.1f} s")
+    return res
 
 
 ALIGN_SECONDS, ALIGN_BUDGET = 60, 30      # the monitors' defaults: 60 s windows, 30 s budget
@@ -1746,6 +1975,8 @@ def main() -> int:
                                    n_samples=SR, chord_margin=chord_margin(mus_cpu["chroma"])),
             f"music program [2, {SR}], card vs CPU")
 
+    classes = run_extractor_classes(card, dev, clips, gen_cfg)  # phases 30-32
+
     for name, kern, plain, x, kw in (                         # phase 15
         ("K2amp", k2, k2_plain, full_sp, dict(with_period_amp=True)),
         ("K4", k4, k4_plain, real, {}),
@@ -1839,6 +2070,7 @@ def main() -> int:
     log(f"main path step: default {fslice['step_ms_default']:.2f} ms, feature epilogue "
         f"{fslice['step_ms_feat']:.2f} ms [{card}]")
     print(json.dumps({"comparator": comparator}), flush=True)
+    print(json.dumps({"extractor_classes": classes}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

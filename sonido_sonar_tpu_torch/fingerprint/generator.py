@@ -8,9 +8,11 @@ Reference parity: fingerprint/fingerprint.go —
   hop size, channels, features, metadata (utils.go:30-58)}; defaults
   window 2048 / hop 512 (:70-98).
 
-The per-clip and the batched path run the same extractor program
-(`extractors/programs.py`, `parallel/pipeline.py`), so a batch equals its
-clips fingerprinted one by one. Compute runs where the PCM is: a tensor
+The per-clip and the batched path run the same extractor (`_extract`):
+the speech and music extractors' single programs (`extractors/programs.py`,
+`parallel/pipeline.py`), and for sports and mixed content the class
+composition over `ops.stft.stft`; so a batch equals its clips
+fingerprinted one by one. Compute runs where the PCM is: a tensor
 stays on its device, numpy PCM goes to the generator's `device` (the card
 unless the caller asks for the CPU; `utils/device.py`).
 """
@@ -37,6 +39,7 @@ from sonido_sonar_tpu_torch.extractors.base import FeatureExtractorFactory
 from sonido_sonar_tpu_torch.extractors.features import ExtractedFeatures, map_tensors, to_numpy
 from sonido_sonar_tpu_torch.fingerprint.content_detector import ContentDetector
 from sonido_sonar_tpu_torch.io.audio import AudioData
+from sonido_sonar_tpu_torch.ops.stft import stft
 from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, as_float32
 
 _log = logging.getLogger(__name__)
@@ -184,16 +187,29 @@ class FingerprintGenerator:
         )
 
     def _extractor_for(self, content_type: ContentType, sample_rate: int):
+        """(extractor, its feature config) for `content_type`."""
         fc = self._feature_config_for(content_type, sample_rate)
-        return self.extractor_factory.create_extractor(content_type, fc)
+        return self.extractor_factory.create_extractor(content_type, fc), fc
+
+    @staticmethod
+    def _extract(extractor, pcm: torch.Tensor, fc, sample_rate: int) -> ExtractedFeatures:
+        """One extractor call (JAX `generator.py:254-263`): the extractor's
+        `extract_features_from_pcm` where it has one (the speech and music
+        programs; sports runs its composition there), else its class
+        composition over the `stft` of the PCM at the feature config's
+        geometry (mixed)."""
+        if hasattr(extractor, "extract_features_from_pcm"):
+            return extractor.extract_features_from_pcm(pcm, sample_rate)
+        spectrogram = stft(pcm, fc.window_size, fc.hop_size, fc.window_type, sample_rate)
+        return extractor.extract_features(spectrogram, pcm, sample_rate)
 
     def generate_fingerprint(self, audio: AudioData) -> AudioFingerprint:
         """GenerateFingerprint (fingerprint.go:137-236)."""
         if audio is None or len(audio.pcm) == 0:
             raise ValueError("audio data cannot be empty")
         content_type = self._detect_content_type(audio)
-        extractor = self._extractor_for(content_type, audio.sample_rate)
-        features = extractor.extract_features_from_pcm(self._as_tensor(audio.pcm), audio.sample_rate)
+        extractor, fc = self._extractor_for(content_type, audio.sample_rate)
+        features = self._extract(extractor, self._as_tensor(audio.pcm), fc, audio.sample_rate)
         fp = self._assemble_fp(audio, content_type, audio.sample_rate, extractor, features)
         fp.features = features
         return fp
@@ -283,7 +299,8 @@ class FingerprintGenerator:
         spec_ct = self._spec_ct if (speculate and dispatched) else None
         spec_features = None
         if spec_ct is not None:
-            spec_features = self._extractor_for(spec_ct, sr).extract_features_from_pcm(pcm_all, sr)
+            ext_s, fc_s = self._extractor_for(spec_ct, sr)
+            spec_features = self._extract(ext_s, pcm_all, fc_s, sr)
         ctypes = resolve()
         uniform_ct = ctypes[0] if all(c == ctypes[0] for c in ctypes) else None
         self._spec_ct = uniform_ct
@@ -295,15 +312,15 @@ class FingerprintGenerator:
         groups: List[Tuple[ContentType, List[int], ExtractedFeatures]] = []
         for ct in dict.fromkeys(ctypes):  # first-seen order
             idxs = [i for i, c in enumerate(ctypes) if c == ct]
-            extractor = self._extractor_for(ct, sr)
+            extractor, fc = self._extractor_for(ct, sr)
             if len(idxs) == len(audios):
                 if spec_features is not None and ct == spec_ct:
                     features = spec_features  # speculation confirmed
                 else:
-                    features = extractor.extract_features_from_pcm(pcm_all, sr)
+                    features = self._extract(extractor, pcm_all, fc, sr)
             else:
                 pcm = pcm_all[torch.tensor(idxs, device=pcm_all.device)]
-                features = extractor.extract_features_from_pcm(pcm, sr)
+                features = self._extract(extractor, pcm, fc, sr)
             groups.append((ct, idxs, features))
             for i in idxs:
                 fingerprints[i] = self._assemble_fp(audios[i], ct, sr, extractor, features)

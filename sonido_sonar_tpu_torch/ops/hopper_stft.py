@@ -303,6 +303,11 @@ def frame_features(magnitude: torch.Tensor, sample_rate: int, window_size: int) 
     )
 
 
+def k1_takes_window(window_size: int) -> bool:
+    """Whether K1 takes this window: a power of two in [64, 2048]."""
+    return 64 <= window_size <= 2048 and window_size & (window_size - 1) == 0
+
+
 def stft_magnitude_plain(
     signal: torch.Tensor,
     window_size: int = 1024,
@@ -318,7 +323,7 @@ def stft_magnitude_plain(
     x = signal.to(torch.float32)
     if pre_emph != 0.0:
         x = pre_emphasis(x, pre_emph)
-    mag = stft(x, window_size, hop_size, window_type)
+    mag = stft(x, window_size, hop_size, window_type).magnitude
     frames = frame_signal(x, window_size, hop_size)
     power = mag * mag
     f_bins = mag.shape[-1]
@@ -371,7 +376,7 @@ def stft_magnitude_hopper(
         )
     if signal.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {signal.device}")
-    if window_size < 64 or window_size > 2048 or window_size & (window_size - 1):
+    if not k1_takes_window(window_size):
         raise ValueError(f"K1 needs a power-of-two window in [64, 2048], got {window_size}")
     sig, b, t = kernel_signal(signal, window_size, hop_size)
     dev = signal.device

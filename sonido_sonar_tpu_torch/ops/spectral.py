@@ -1,7 +1,8 @@
 """Frame-parallel spectral descriptors over magnitude spectrograms
-(counterpart of the main-path part of `sonido_sonar_tpu/ops/spectral.py`).
+(counterpart of `sonido_sonar_tpu/ops/spectral.py`: the standalone
+descriptors, the contrast, ZCR and the shared-pass bundle).
 
-Reference parity: algorithms/spectral/*.go — centroid,
+Reference parity: algorithms/spectral/*.go — centroid, rolloff,
 bandwidth, flatness (threshold 1e-10), crest, slope (log-log masked
 regression), contrast (spectral_contrast.go:26-188: log-spaced bands
 from 200 Hz, top/bottom 20% power means, dB), zero-crossing rate
@@ -29,6 +30,85 @@ def _freq_bins(num_bins: int, sample_rate: int) -> np.ndarray:
     return (np.arange(num_bins, dtype=np.float64) * nyquist / (num_bins - 1)).astype(
         np.float32
     )
+
+
+def spectral_centroid(magnitude: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """Magnitude-weighted mean frequency, [..., F] -> [...]
+    (spectral_centroid.go:18-56)."""
+    freqs = device_table(_freq_bins, (magnitude.shape[-1], sample_rate), magnitude.device)
+    num = torch.sum(magnitude * freqs, dim=-1)
+    den = torch.sum(magnitude, dim=-1)
+    return torch.where(den > 0, num / torch.clamp_min(den, _EPS), 0.0)
+
+
+def spectral_rolloff(
+    magnitude: torch.Tensor, sample_rate: int, threshold: float = 0.85
+) -> torch.Tensor:
+    """Frequency of the first bin whose power prefix sum reaches
+    `threshold` of the total (spectral_rolloff.go:19-56); 0 where the
+    total is 0."""
+    freqs = device_table(_freq_bins, (magnitude.shape[-1], sample_rate), magnitude.device)
+    power = magnitude * magnitude
+    total = torch.sum(power, dim=-1, keepdim=True)
+    reached = torch.cumsum(power, dim=-1) >= threshold * total
+    idx = torch.argmax(reached.to(torch.uint8), dim=-1)
+    return torch.where(total[..., 0] > 0, freqs[idx], 0.0)
+
+
+def spectral_bandwidth(
+    magnitude: torch.Tensor, sample_rate: int, centroid: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Magnitude-weighted std around the centroid (spectral_bandwidth.go:22-47)."""
+    freqs = device_table(_freq_bins, (magnitude.shape[-1], sample_rate), magnitude.device)
+    if centroid is None:
+        centroid = spectral_centroid(magnitude, sample_rate)
+    diff = freqs - centroid[..., None]
+    num = torch.sum(diff * diff * magnitude, dim=-1)
+    den = torch.sum(magnitude, dim=-1)
+    return torch.where(den > 0, torch.sqrt(num / torch.clamp_min(den, _EPS)), 0.0)
+
+
+def spectral_flatness(magnitude: torch.Tensor, min_threshold: float = _EPS) -> torch.Tensor:
+    """Wiener entropy: geometric over arithmetic mean, the geometric mean
+    over bins above `min_threshold` only (spectral_flatness.go:31-75)."""
+    valid = magnitude > min_threshold
+    count = torch.sum(valid, dim=-1)
+    log_sum = torch.sum(
+        torch.where(valid, torch.log(torch.clamp_min(magnitude, min_threshold)), 0.0), dim=-1)
+    geo = torch.exp(log_sum / torch.clamp_min(count, 1))
+    arith = torch.mean(magnitude, dim=-1)
+    return torch.where(
+        (count > 0) & (arith > min_threshold), geo / torch.clamp_min(arith, _EPS), 0.0)
+
+
+def spectral_flatness_db(magnitude: torch.Tensor) -> torch.Tensor:
+    """dB variant (spectral_flatness.go:78-92)."""
+    return 10.0 * torch.log10(torch.clamp_min(spectral_flatness(magnitude), _EPS))
+
+
+def spectral_crest(magnitude: torch.Tensor) -> torch.Tensor:
+    """Peak over RMS (spectral_crest.go:18-39)."""
+    peak = torch.amax(magnitude, dim=-1)
+    rms = torch.sqrt(torch.mean(magnitude * magnitude, dim=-1))
+    return torch.where(rms > 0, peak / torch.clamp_min(rms, _EPS), 0.0)
+
+
+def spectral_slope(magnitude: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """Linear-regression slope of log10(mag) against log10(freq)
+    (spectral_slope.go:24-82), over bins with mag > 1e-10 and f > 0."""
+    freqs = device_table(_freq_bins, (magnitude.shape[-1], sample_rate), magnitude.device)
+    valid = (magnitude > _EPS) & (freqs > 0)
+    x = torch.where(valid, torch.log10(torch.clamp_min(freqs, _EPS)), 0.0)
+    y = torch.where(valid, torch.log10(torch.clamp_min(magnitude, _EPS)), 0.0)
+    n = torch.sum(valid, dim=-1).to(torch.float32)
+    sum_x = torch.sum(x, dim=-1)
+    sum_y = torch.sum(y, dim=-1)
+    sum_xy = torch.sum(x * y, dim=-1)
+    sum_xx = torch.sum(x * x, dim=-1)
+    den = n * sum_xx - sum_x * sum_x
+    den_ok = torch.abs(den) > _EPS
+    return torch.where(
+        (n >= 2) & den_ok, (n * sum_xy - sum_x * sum_y) / torch.where(den_ok, den, 1.0), 0.0)
 
 
 @functools.lru_cache(maxsize=32)

@@ -97,6 +97,15 @@ def log_energy(
     return 20.0 * torch.log10(torch.clamp_min(short_time_energy(signal, frame_size, hop_size), floor))
 
 
+def energy_entropy(energies: torch.Tensor) -> torch.Tensor:
+    """Shannon entropy (log2) of the energy distribution over frames,
+    [..., T] -> [...] (energy.go:69-94)."""
+    total = torch.sum(energies, dim=-1, keepdim=True)
+    p = torch.where(total > 0, energies / torch.clamp_min(total, _EPS), 0.0)
+    terms = torch.where(p > 0, -p * torch.log2(torch.clamp_min(p, _EPS)), 0.0)
+    return torch.sum(terms, dim=-1)
+
+
 def energy_variance(energies: torch.Tensor) -> torch.Tensor:
     """Sample variance (N-1 denominator), [..., T] -> [...]
     (energy.go:97-119)."""
@@ -110,6 +119,12 @@ def energy_variance(energies: torch.Tensor) -> torch.Tensor:
 def energy_derivative(energies: torch.Tensor) -> torch.Tensor:
     """First difference, [..., T] -> [..., T-1] (energy.go:122-134)."""
     return energies[..., 1:] - energies[..., :-1]
+
+
+def energy_ratio(e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
+    """Elementwise ratio, 0 where the denominator is <= 1e-10
+    (energy.go:136-155)."""
+    return torch.where(e2 > _EPS, e1 / torch.clamp_min(e2, _EPS), 0.0)
 
 
 def loudness_range(signal: torch.Tensor, sample_rate: int) -> torch.Tensor:

@@ -12,7 +12,9 @@ either package into one dict of numpy arrays, so the tests compare both
 with one function. The comparator has no weights either: its state is
 the corpus, and `fingerprint_from_reference` carries a fingerprint of
 the JAX package (or any object of its fields) across, so both
-comparators score the same corpus.
+comparators score the same corpus. `stft_result_from_reference` carries
+a spectrogram across, so both packages' extractor compositions read the
+same magnitudes.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from sonido_sonar_tpu_torch.config.config import (
 )
 from sonido_sonar_tpu_torch.extractors import features as F
 from sonido_sonar_tpu_torch.fingerprint.generator import AudioFingerprint
+from sonido_sonar_tpu_torch.ops.stft import STFTResult
 
 CONSTANT_KEYS = (
     "dft_basis",       # [W, 2F] windowed rDFT basis (ops/stft._windowed_dft_matrix)
@@ -167,6 +170,26 @@ def fingerprint_from_reference(fp: Any) -> AudioFingerprint:
         features=_features_from_reference(fp.features),
         metadata=dict(fp.metadata or {}),
     )
+
+
+def stft_result_from_reference(
+    mag, phase, complex_spec, sample_rate: int, window_size: int, hop_size: int, device
+) -> STFTResult:
+    """The port's STFTResult from a spectrogram's arrays (numpy, or
+    anything numpy reads, such as the JAX package's `STFTResult` fields):
+    magnitude and phase as float32, the complex spectrum as complex64,
+    None kept, all on `device`. The magnitude must be [..., T, W // 2 + 1]
+    and finite."""
+    def tensor(a, dtype):
+        return None if a is None else torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+    m = tensor(mag, np.float32)
+    if m.dim() < 2 or m.shape[-1] != window_size // 2 + 1:
+        raise ValueError(f"magnitude {tuple(m.shape)} is not [..., T, {window_size // 2 + 1}]")
+    if not bool(torch.isfinite(m).all()):
+        raise ValueError("magnitude holds non-finite values")
+    return STFTResult(m, tensor(phase, np.float32), tensor(complex_spec, np.complex64),
+                      int(sample_rate), int(window_size), int(hop_size))
 
 
 def flatten_features(features: Any, prefix: str = "") -> Dict[str, Any]:

@@ -34,6 +34,19 @@ CONF_ATOL = 1e-3
 # frame's scale; 2e-4 of the largest magnitude is the JAX kernel tests'
 # bound (tests/test_pallas_stft.py).
 MAG_ATOL_SCALE = 2e-4
+# The complex spectrum takes the magnitudes' bound. Phase: the two
+# packages' complex values agree to ~7e-7 of the largest magnitude at
+# 1024 (DFT matmul) and ~2e-7 at 4096 (FFT), so on bins above
+# PHASE_MAG_FLOOR of their frame's peak the phase moves by ~1e-3 rad at
+# most (measured 2.8e-4 rad); PHASE_ATOL is 1e-2 rad, wrapped.
+PHASE_MAG_FLOOR = 1e-3
+PHASE_ATOL = 1e-2
+# dB of the same float32 powers through two libraries' log10: an ulp of
+# the result, ~1e-5 dB at 100 dB.
+LOG_POWER_ATOL_DB = 1e-4
+# One row of a batch against the same clip alone through an extractor
+# composition: the JAX test's bound (tests/test_surface_extras.py:243-295).
+BATCH_ROW_TOL = (1e-4, 1e-4)
 
 # key -> (rtol, atol); atol "scale:x" means x times max |reference|.
 #
@@ -52,6 +65,8 @@ FEATURE_TOLERANCES = {
     "mfcc": (0.0, 2e-2),
     "spectral_contrast": (1e-2, 2e-2),
     "spectral_flatness": (1e-2, 1e-5),
+    # 10 log10 of the flatness: its 1 % bound is 0.043 dB
+    "spectral_flatness_db": (0.0, 5e-2),
     "spectral_slope": (0.0, 3e-3),
     # unit-sum fractions of fold energies
     "chroma": (0.0, 1e-5),
@@ -459,6 +474,33 @@ def check_band_means(peak, valley, ref_peak, ref_valley) -> Report:
     failures: List[str] = []
     _close("peak", peak, ref_peak, BAND_MEANS_RTOL, 1e-12, errors, failures)
     _close("valley", valley, ref_valley, BAND_MEANS_RTOL, 1e-12, errors, failures)
+    return errors, failures
+
+
+# Extractor metadata: numbers computed on the device, key -> (rtol, atol);
+# every other value must be equal. The sports extractor's excitement
+# proxies are the energy variance (FEATURE_TOLERANCES) and the log2
+# entropy of the frames' energy shares (float32 sums over T frames,
+# ~1e-7 relative; 1e-5).
+METADATA_TOLERANCES = {
+    "excitement_variance": FEATURE_TOLERANCES["energy_variance"],
+    "excitement_entropy": (1e-5, 1e-6),
+}
+
+
+def check_metadata(got: dict, ref: dict) -> Report:
+    """ExtractedFeatures metadata: the same keys, the values of
+    METADATA_TOLERANCES' keys (a float or a list of floats) within their
+    bounds, every other value equal."""
+    errors: Dict[str, float] = {}
+    failures: List[str] = []
+    if sorted(got) != sorted(ref):
+        failures.append(f"keys differ: {sorted(set(got) ^ set(ref))}")
+    for key in sorted(set(got) & set(ref)):
+        if key in METADATA_TOLERANCES:
+            _close(key, got[key], ref[key], *METADATA_TOLERANCES[key], errors, failures)
+        elif got[key] != ref[key]:
+            failures.append(f"{key}: {got[key]!r} != {ref[key]!r}")
     return errors, failures
 
 

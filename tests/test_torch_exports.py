@@ -5,7 +5,7 @@ a module that the port also has must import from the port's package of
 the same path (`from sonido_sonar_tpu_torch.extractors import
 SpeechFeatureExtractor`, as `from sonido_sonar_tpu.extractors import
 SpeechFeatureExtractor`). Names of modules the port does not have yet
-(sports, the mesh, decoding, warm-up) are ROADMAP's open items and are
+(the mesh, decoding, warm-up) are ROADMAP's open items and are
 not asked for; names that a ported module
 still lacks are listed in NOT_PORTED, so the list stays exact. The JAX
 `__init__` files are read as source, not imported.

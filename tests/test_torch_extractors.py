@@ -2,7 +2,8 @@
 by key: `speech_extractor_program`, `batched_speech_extractor_features`
 and `batched_music_extractor_features` (K1, K2 with and without the
 period amplitude, K4 — all through their plain versions here), the
-assembled ExtractedFeatures, and the factory's routing. Tolerances are
+assembled ExtractedFeatures, and the factory's routing (sports and
+mixed content to their class compositions under non-strict routing). Tolerances are
 utils/parity.py's (check_extracted)."""
 
 import numpy as np
@@ -187,10 +188,14 @@ def test_factory_routing():
         assert ext.get_name() == "SpeechFeatureExtractor"
         assert ext.is_news == (ct != ContentType.TALK)
     loose = FeatureExtractorFactory(False)
-    assert loose.create_extractor(ContentType.MUSIC, fc).get_name() == "MusicFeatureExtractor"
-    for ct in (ContentType.SPORTS, ContentType.MIXED):
-        with pytest.raises(NotImplementedError, match="item 19"):
-            loose.create_extractor(ct, fc)
+    jloose = JFactory(False)
+    for ct, name in ((ContentType.MUSIC, "MusicFeatureExtractor"),
+                     (ContentType.SPORTS, "SportsFeatureExtractor"),
+                     (ContentType.MIXED, "MixedFeatureExtractor")):
+        ext = loose.create_extractor(ct, fc)
+        jext = jloose.create_extractor(JContentType(ct.value), JFeatureConfig())
+        assert type(ext).__name__ == type(jext).__name__ == ext.get_name() == name
+        assert ext.get_content_type() == ct and ext.get_feature_weights() == jext.get_feature_weights()
     assert JFeatureConfig().weights_dict() == fc.weights_dict()
 
 
