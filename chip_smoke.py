@@ -186,10 +186,43 @@ Phases 30-32 run right after phase 14, on phase 12's clips:
      stft of the whole signal (utils/parity.MAG_ATOL_SCALE), ms per push;
      a 4096-window streamer takes the stft route with no K1 launch
 
+Phases 33-36 run right after phase 22 (the ingest layer and the user
+entry points, from WAV files in a temporary directory):
+ 33. ingest: 64 mono 16-bit WAVs of 30 s at 44.1 kHz (speech-like,
+     music-like and harmonic tones, seeded from SEED) written with the
+     port's write_wav, and 4 stereo 16-bit 48 kHz WAVs written with the
+     stdlib; the native loader asserted available (built with g++);
+     decode_files_parallel on the native path and on the decoder's
+     stdlib path, every file's PCM within 1e-6 of the stdlib read (the
+     48 kHz files through _resample_polyphase); ms per file and
+     audio-hours of ingest per wall-hour
+ 34. examples.cdn_latency.main at full width: 60 s speech-like and
+     music-like sources, the CDN copy delayed by 1.234 s + 137 samples
+     (gain 0.9, noise 0.02), a 30 s budget: the refined latency within one
+     hop, launches, the stage split (decode, fingerprints, alignment,
+     refine), the first call against the warm one and a fresh process's
+     run beside the nvcc build; examples.corpus_search.main over phase
+     33's 64 files with a query of file 17 plus noise: rank 1 is file 17
+ 35. the accuracy sweep on the card: eval_accuracy.run_extended at 44.1
+     kHz, full, held to every gate of tests/test_eval_gates.py (a miss
+     raises); eval_accuracy.run at 44.1 kHz, full, batched (coarse offsets
+     identical to the per-pair ones); run_extended at 22.05 kHz, quick,
+     on the card and the CPU with equal per-category within-one-hop rates
+ 36. models.FingerprintModel over 8 host batches of 128 x 30 s under
+     parallel.pipeline.run_stream(drain_every=2) and as blocking calls:
+     outputs bit-equal in order, audio-hours per wall-hour both ways, the
+     busy share of a profiled window; examples.batch_monitor.main at its
+     defaults and at 64 pairs x 60 s (exact-sample recovery); one
+     main-path step under utils.profiler_trace in a fresh process, its
+     trace naming K1's kernel (the same step traced in this process is
+     logged)
+
 A {"comparator": {...}} line (the card, phases 28-29's gates, launch
-counts and times) and an {"extractor_classes": {...}} line (phases
+counts and times), an {"extractor_classes": {...}} line (phases
 30-32's launch counts, step times, peak memory and the streamer's
-numbers) come before the kernels line. The second-to-last line
+numbers) and the {"ingest": ...}, {"cdn_latency": ...}, {"accuracy": ...}
+and {"stream": ...} lines of phases 33-36 (each path's kernel launches,
+counted from 0 just before it) come before the kernels line. The second-to-last line
 is {"kernels": [...]}: for each kernel its
 launches on its path, its largest error against its plain version, its
 time, the plain version's, its bound (the larger of the bytes it must move
@@ -210,6 +243,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -372,9 +406,10 @@ def report_steps(what: str, step_s: list, audio_s: float, card: str) -> float:
     return ms
 
 
-def profile_step(what: str, fn, top: int = 12) -> None:
-    """One torch.profiler step of fn(): the device's busy share (kernel
-    time over wall time) and the kernels with the most device time."""
+def profile_step(what: str, fn, top: int = 12) -> float:
+    """One torch.profiler step of fn(): logs the device's busy share
+    (kernel time over wall time), which it returns, and the kernels with
+    the most device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
@@ -388,6 +423,7 @@ def profile_step(what: str, fn, top: int = 12) -> None:
         f"{1e-3 * busy_us:.2f} ms = {100 * busy_us * 1e-6 / wall:.1f} %")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile {what}] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    return busy_us * 1e-6 / wall
 
 
 def check_surface(what: str, arrays: dict, expect: dict, ints: dict) -> None:
@@ -1543,6 +1579,468 @@ def run_comparator(card: str, dev: torch.device, batch, fps, gen_step, kernels: 
     return res
 
 
+INGEST_FILES, INGEST_SECONDS = 64, 30      # phase 33: mono 16-bit WAVs at SR
+STEREO_FILES, STEREO_SR = 4, 48000        # phase 33: stereo 16-bit WAVs, resampled on decode
+WAV_ATOL = 1e-6                           # tests/test_native_io.py's native-vs-stdlib bound
+LATENCY_SECONDS, LATENCY_BUDGET = 60, 30.0
+LATENCY_LAG = int(1.234 * SR) + 137       # phase 34's injected CDN delay, off the hop grid
+QUERY_FILE = 17                           # phase 34's corpus query: this file plus noise
+STREAM_BATCHES, STREAM_CLIP_SECONDS = 8, 30  # phase 36: host batches of FULL_B clips
+MONITOR_PAIRS, MONITOR_SECONDS = 64, 60.0    # phase 36: batch_monitor at fleet width
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper and the name of its launch counter."""
+    from sonido_sonar_tpu_torch.ops import hopper_contrast, hopper_onsets, hopper_stft, hopper_yin
+    from sonido_sonar_tpu_torch.ops.stats import hopper_backtrack, hopper_dtw
+
+    k1, k2 = hopper_stft.stft_magnitude_hopper, hopper_yin.yin_pitch_hopper
+    return {"K1": (k1, "launches"), "K10": (k1, "feat_launches"), "K2": (k2, "launches"),
+            "K2amp": (k2, "amp_launches"), "K3": (hopper_yin.yin_difference_hopper, "launches"),
+            "K4": (hopper_onsets.thin_onsets_hopper, "launches"),
+            "K9": (hopper_contrast.band_select_means_hopper, "launches"),
+            "fill": (hopper_dtw.fill_banded_hopper, "launches"),
+            "backtrack": (hopper_backtrack.backtrack_banded_hopper, "launches")}
+
+
+def zero_launches() -> None:
+    for fn, attr in kernel_wrappers().values():
+        setattr(fn, attr, 0)
+
+
+def read_launches() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in kernel_wrappers().items()}
+
+
+def counted(fn):
+    """(fn's result, the kernels it launched, its host-clock seconds):
+    counts set to 0 just before the call, read just after it."""
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_launches(), time.perf_counter() - t0
+
+
+def ingest_clip(i: int, seconds: int) -> np.ndarray:
+    """Phase 33's file i at SR: speech-like, music-like or a harmonic
+    tone plus noise by i mod 3, each seeded from SEED and i."""
+    from sonido_sonar_tpu_torch.io.synth import harmonic_tone, music_like, speech_like, white_noise
+
+    seed = SEED + 100 + i
+    if i % 3 == 0:
+        return speech_like(seconds, SR, f0=100.0 + 5 * (i % 8), seed=seed,
+                           random_syllables=True)
+    if i % 3 == 1:
+        return music_like(seconds, SR, tempo_bpm=90.0 + i, seed=seed)
+    return harmonic_tone(110.0 + 7 * i, seconds, SR, num_harmonics=8, decay=0.85) \
+        + white_noise(seconds, SR, 0.02, seed=seed)
+
+
+def write_ingest_clip(i: int, seconds: int, path: str) -> str:
+    from sonido_sonar_tpu_torch.io.decode import write_wav
+
+    write_wav(path, ingest_clip(i, seconds), SR)
+    return path
+
+
+def stdlib_wav(path: str) -> tuple:
+    """(mono float32 PCM, rate) read with the stdlib `wave` module alone,
+    as tests/test_native_io.py reads its reference."""
+    import wave
+
+    with wave.open(path, "rb") as w:
+        ch, sr = w.getnchannels(), w.getframerate()
+        x = np.frombuffer(w.readframes(w.getnframes()), dtype="<i2").astype(np.float32) / 32768.0
+    return (x.reshape(-1, ch).mean(axis=1) if ch > 1 else x), sr
+
+
+def run_ingest(card: str, tmp: Path) -> dict:
+    """Phase 33: 64 mono WAVs of 30 s at 44.1 kHz written with the port's
+    write_wav (in a process pool: the speech generator is a Python loop)
+    and 4 stereo 48 kHz WAVs written with the stdlib, all decoded by
+    decode_files_parallel on the native path, each held to the stdlib
+    read (the 48 kHz files resampled by _resample_polyphase), then the
+    same files through the decoder's stdlib path. Returns the paths of the
+    mono corpus and the {"ingest": ...} numbers."""
+    import concurrent.futures
+    import multiprocessing
+    import wave
+
+    from sonido_sonar_tpu_torch.io import native
+    from sonido_sonar_tpu_torch.io.decode import _resample_polyphase, decode_files_parallel
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("phase 33: the native WAV loader is not available (g++ build)")
+    build_s = time.perf_counter() - t0
+    corpus = tmp / "corpus"
+    corpus.mkdir()
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        paths = list(ex.map(write_ingest_clip, range(INGEST_FILES),
+                            [INGEST_SECONDS] * INGEST_FILES,
+                            [str(corpus / f"clip{i:02d}.wav") for i in range(INGEST_FILES)]))
+    stereo = []
+    for j in range(STEREO_FILES):
+        rng = np.random.default_rng(SEED + 300 + j)
+        t = np.arange(STEREO_SR * INGEST_SECONDS) / STEREO_SR
+        x = np.stack([0.4 * np.sin(2 * np.pi * (300.0 + 50 * j) * t),
+                      0.2 * rng.standard_normal(len(t))], axis=1)
+        p = str(tmp / f"stereo{j}.wav")
+        with wave.open(p, "wb") as w:
+            w.setnchannels(2)
+            w.setsampwidth(2)
+            w.setframerate(STEREO_SR)
+            w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+        stereo.append(p)
+    write_s = time.perf_counter() - t0
+    files = paths + stereo
+    audio_s = INGEST_SECONDS * len(files)
+
+    t0 = time.perf_counter()
+    audios = decode_files_parallel(files)
+    native_s = time.perf_counter() - t0
+    use_native = native.available
+    native.available = lambda: False  # the decoder's stdlib path, for its time
+    try:
+        t0 = time.perf_counter()
+        stdlib_audios = decode_files_parallel(files)
+        stdlib_s = time.perf_counter() - t0
+    finally:
+        native.available = use_native
+    worst = 0.0
+    for p, a, s in zip(files, audios, stdlib_audios):
+        ref, sr = stdlib_wav(p)
+        if sr != SR:
+            ref = _resample_polyphase(ref, sr, SR)
+        for got in (a, s):
+            if got is None or got.sample_rate != SR or got.pcm.shape != ref.shape:
+                raise AssertionError(f"phase 33: {p} decoded to {None if got is None else got.pcm.shape}")
+            worst = max(worst, float(np.abs(got.pcm - ref).max()))
+    if not worst <= WAV_ATOL:
+        raise AssertionError(f"phase 33: decoded PCM {worst:.3g} from the stdlib read (> {WAV_ATOL})")
+    res = {"files": len(files), "audio_s": audio_s, "native_available": True,
+           "native_build_s": build_s, "write_s": write_s, "max_abs_err": worst,
+           "native": {"wall_s": native_s, "ms_per_file": 1e3 * native_s / len(files),
+                      "audio_h_per_wall_h": audio_s / native_s},
+           "stdlib": {"wall_s": stdlib_s, "ms_per_file": 1e3 * stdlib_s / len(files),
+                      "audio_h_per_wall_h": audio_s / stdlib_s}}
+    log(f"[ingest] {len(paths)} mono 44.1 kHz + {len(stereo)} stereo 48 kHz WAVs of "
+        f"{INGEST_SECONDS} s written in {write_s:.1f} s; native loader ready in {build_s:.2f} s")
+    log(f"[ingest] decode_files_parallel, native path: {native_s:.3f} s, "
+        f"{res['native']['ms_per_file']:.2f} ms per file, "
+        f"{res['native']['audio_h_per_wall_h']:.0f} audio-h per wall-h; stdlib path: "
+        f"{stdlib_s:.3f} s, {res['stdlib']['ms_per_file']:.2f} ms per file, "
+        f"{res['stdlib']['audio_h_per_wall_h']:.0f} audio-h per wall-h; every file within "
+        f"{worst:.3g} of the stdlib read (limit {WAV_ATOL}) [{card}]")
+    return paths, res
+
+
+def run_cdn_latency(card: str, dev: torch.device, tmp: Path, corpus: list,
+                    nvcc_s: float) -> dict:
+    """Phase 34: examples/cdn_latency at full width on a speech-like and a
+    music-like 60 s source and a CDN copy delayed by LATENCY_LAG (gain
+    0.9, noise 0.02), both written as WAV: the refined latency within one
+    hop, launches and the stage split, the first call against the warm
+    one and a fresh process's run; then examples/corpus_search over phase
+    33's files with a query of file QUERY_FILE plus noise. Returns the
+    {"cdn_latency": ...} numbers."""
+    from sonido_sonar_tpu_torch.examples import cdn_latency, corpus_search
+    from sonido_sonar_tpu_torch.io.decode import write_wav
+    from sonido_sonar_tpu_torch.io.synth import music_like, shift_signal, speech_like
+
+    res = {"lag_samples": LATENCY_LAG, "budget_s": LATENCY_BUDGET, "nvcc_build_s": nvcc_s}
+    sources = {"speech": speech_like(LATENCY_SECONDS, SR, seed=SEED + 200, random_syllables=True),
+               "music": music_like(LATENCY_SECONDS, SR, seed=SEED + 201)}
+    for label, src in sources.items():
+        sp, cp = str(tmp / f"{label}_src.wav"), str(tmp / f"{label}_cdn.wav")
+        write_wav(sp, src, SR)
+        write_wav(cp, shift_signal(src, LATENCY_LAG, noise=0.02, gain=0.9), SR)
+        calls = {}
+        for call in ("first", "warm"):
+            out, launches, wall_s = counted(lambda: cdn_latency.main(sp, cp, LATENCY_BUDGET,
+                                                                     device=dev))
+            err_ms = 1e3 * abs(out["latency_s"] - LATENCY_LAG / SR)
+            calls[call] = {"wall_ms": 1e3 * wall_s, "stages_ms": out["ms"], "launches": launches,
+                           "latency_ms": 1e3 * out["latency_s"], "err_ms": err_ms,
+                           "coarse_ms": 1e3 * out["coarse_s"], "confidence": out["confidence"],
+                           "method": out["method"], "content_type": out["content_type"]}
+            log(f"[cdn_latency {label} {call}] {out['content_type']}, latency "
+                f"{1e3 * out['latency_s']:.3f} ms (injected {1e3 * LATENCY_LAG / SR:.3f}, err "
+                f"{err_ms:.3f} ms, one hop {1e3 * HOP / SR:.3f}), {out['method']}, confidence "
+                f"{out['confidence']:.3f}; {1e3 * wall_s:.1f} ms: "
+                + ", ".join(f"{k} {v:.1f}" for k, v in out["ms"].items())
+                + f" ms; launches {launches} [{card}]")
+            if not err_ms <= 1e3 * HOP / SR:
+                raise AssertionError(f"cdn_latency {label}: {err_ms:.3f} ms from the injected lag")
+            if launches["K1"] < 1:
+                raise AssertionError(f"cdn_latency {label}: no K1 launch ({launches})")
+        res[label] = calls
+    # a fresh process, as a user's first command (the kernel and WAV
+    # libraries already built in this checkout)
+    sp, cp = str(tmp / "speech_src.wav"), str(tmp / "speech_cdn.wav")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sonido_sonar_tpu_torch.examples.cdn_latency",
+                           sp, cp, str(LATENCY_BUDGET)], capture_output=True, text=True,
+                          timeout=600, cwd=Path(__file__).resolve().parent)
+    fresh_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "latency" not in proc.stdout:
+        raise AssertionError(f"cdn_latency in a fresh process failed: {proc.stderr[-3000:]}")
+    res["fresh_process_s"] = fresh_s
+    log(f"[cdn_latency cold start] the speech pair: first call in this process "
+        f"{res['speech']['first']['wall_ms']:.1f} ms, warm {res['speech']['warm']['wall_ms']:.1f} "
+        f"ms; a fresh `python -m ...examples.cdn_latency` {fresh_s:.2f} s; the kernels' nvcc "
+        f"build {nvcc_s:.1f} s (once per checkout) [{card}]")
+
+    rng = np.random.default_rng(SEED + 17)
+    query = ingest_clip(QUERY_FILE, INGEST_SECONDS) + 0.02 * rng.standard_normal(INGEST_SECONDS * SR)
+    qpath = str(tmp / "query.wav")
+    write_wav(qpath, query.astype(np.float32), SR)
+    matches, launches, wall_s = counted(
+        lambda: corpus_search.main(qpath, str(Path(corpus[0]).parent), k=5, device=dev))
+    top = Path(matches[0].fingerprint.stream_url).name
+    res["corpus_search"] = {"files": len(corpus), "wall_s": wall_s, "launches": launches,
+                            "top": top, "top_similarity": matches[0].similarity.overall_similarity,
+                            "second_similarity": (matches[1].similarity.overall_similarity
+                                                  if len(matches) > 1 else None)}
+    log(f"[corpus_search] {len(corpus)} files x {INGEST_SECONDS} s, query file {QUERY_FILE} + "
+        f"noise 0.02: rank 1 {top} ({res['corpus_search']['top_similarity']:.4f}, next "
+        f"{res['corpus_search']['second_similarity']}); {wall_s:.2f} s; launches {launches} [{card}]")
+    if top != Path(corpus[QUERY_FILE]).name:
+        raise AssertionError(f"corpus_search ranked {top} first, not file {QUERY_FILE}")
+    if launches["K1"] < len(corpus):
+        raise AssertionError(f"corpus_search: {launches['K1']} K1 launches for {len(corpus)} files")
+    return res
+
+
+def eval_gate_misses(summary: dict, min_accept: float) -> list:
+    """Gates 1, 2 and 4 of tests/test_eval_gates.py on a run_extended
+    summary: every default-path category within one hop (coarse and
+    refined, median refined error within a hop) at a mean confidence of
+    at least `min_accept`; the time-stretch errors below 1e-3."""
+    misses = []
+    for cat, s in summary["categories"].items():
+        if cat.endswith("_unverified"):
+            continue
+        if s["coarse_within_one_hop"] != 1.0 or s["refined_within_one_hop"] != 1.0:
+            misses.append(f"{cat}: within one hop {s['coarse_within_one_hop']}, "
+                          f"{s['refined_within_one_hop']}")
+        if s["refined_err_ms_median"] > summary["hop_ms"]:
+            misses.append(f"{cat}: median refined error {s['refined_err_ms_median']} ms")
+        if s["mean_confidence"] < min_accept:
+            misses.append(f"{cat}: mean confidence {s['mean_confidence']} < {min_accept}")
+    ts = summary["time_stretch"]
+    if not ts["max_abs_error"] < 1e-3:
+        misses.append(f"time stretch max error {ts['max_abs_error']}")
+    if ts["dtw_slope_max_abs_error"] is not None and not ts["dtw_slope_max_abs_error"] < 1e-3:
+        misses.append(f"DTW-slope stretch max error {ts['dtw_slope_max_abs_error']}")
+    return misses
+
+
+def comb_gate(dev: torch.device, sr: int, quick: bool, min_accept: float) -> dict:
+    """Gate 3 of tests/test_eval_gates.py, "with verification forced off,
+    a comb-ambiguous wrong answer must arrive below every accept
+    threshold", on each music_bandlimited_unverified case: the cases run
+    again one by one (run_extended reports only the category's mean)."""
+    from sonido_sonar_tpu_torch import eval_accuracy as EA
+
+    ext = EA.sweep_extractor(sr, dev)
+    hop_s = ext.config.hop_size / sr
+    cases = []
+    for cat, src, cdn, lag, verify in EA.extended_cases(sr, quick):
+        if cat == "music_bandlimited_unverified":
+            feats, _ = EA.align_case(ext, src, cdn, sr, verify)
+            cases.append({"lag": lag, "offset": round(feats.temporal_offset * sr),
+                          "confidence": feats.offset_confidence,
+                          "wrong": abs(feats.temporal_offset - lag / sr) > hop_s + 1e-6})
+    return {"cases": cases, "wrong_below_accept": all(
+        c["confidence"] < min_accept for c in cases if c["wrong"])}
+
+
+def run_accuracy(card: str, dev: torch.device) -> dict:
+    """Phase 35: the accuracy sweep on the card: run_extended at 44.1 kHz,
+    full, against every gate of tests/test_eval_gates.py; run at 44.1 kHz,
+    full, batched (the [B]-pair aligner's coarse offsets equal to the
+    per-pair ones); run_extended at 22.05 kHz, quick, on the card and on
+    the CPU with equal per-category within-one-hop rates. Returns the
+    {"accuracy": ...} numbers."""
+    from sonido_sonar_tpu_torch import eval_accuracy as EA
+    from sonido_sonar_tpu_torch.config.config import ContentType, alignment_config_for_content
+
+    min_accept = min(alignment_config_for_content(ct).min_confidence for ct in ContentType)
+    full, launches, full_s = counted(lambda: EA.run_extended(SR, quick=False, device=dev))
+    for cat, s in full["categories"].items():
+        log(f"[accuracy 44.1 kHz full] {cat}: {json.dumps(s)}")
+    log(f"[accuracy 44.1 kHz full] time stretch {json.dumps(full['time_stretch'])}; "
+        f"{full_s:.1f} s, launches {launches} [{card}]")
+    misses = eval_gate_misses(full, min_accept)
+    comb = comb_gate(dev, SR, False, min_accept)
+    stats = full["categories"]["music_bandlimited_unverified"]
+    comb["category_mean_form"] = (stats["coarse_within_one_hop"] == 1.0
+                                  or stats["mean_confidence"] < min_accept)
+    log(f"[accuracy 44.1 kHz full] gate 3 per case: {json.dumps(comb['cases'])}; every wrong "
+        f"answer below {min_accept}: {comb['wrong_below_accept']}; the category-mean form of "
+        f"tests/test_eval_gates.py (mean {stats['mean_confidence']:.4f} over right and wrong "
+        f"answers): {comb['category_mean_form']}")
+    if not comb["wrong_below_accept"]:
+        misses.append("music_bandlimited_unverified: a wrong answer at or above the accept "
+                      "threshold")
+    if misses:
+        raise AssertionError("the 44.1 kHz sweep misses the gates: " + "; ".join(misses))
+    if launches["fill"] < 1 or launches["backtrack"] < 1:
+        raise AssertionError(f"the sweep's chroma DTW did not run the DTW kernels: {launches}")
+    lagged, lag_launches, lagged_s = counted(lambda: EA.run(SR, quick=False, batched=True,
+                                                            device=dev))
+    log(f"[accuracy 44.1 kHz run, batched] {json.dumps(lagged)}; {lagged_s:.1f} s, launches "
+        f"{lag_launches} [{card}]")
+    if not lagged["batched"]["coarse_identical_to_per_pair"]:
+        raise AssertionError("the batched aligner's coarse offsets differ from the per-pair ones")
+    t0 = time.perf_counter()
+    card_quick = EA.run_extended(22050, quick=True, device=dev)
+    card_quick_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_quick = EA.run_extended(22050, quick=True, device="cpu")
+    cpu_quick_s = time.perf_counter() - t0
+    rates = ("coarse_within_one_hop", "refined_within_one_hop")
+    differ = [c for c in cpu_quick["categories"]
+              if any(card_quick["categories"][c][r] != cpu_quick["categories"][c][r] for r in rates)]
+    conf_diff = max(abs(card_quick["categories"][c]["mean_confidence"]
+                        - cpu_quick["categories"][c]["mean_confidence"])
+                    for c in cpu_quick["categories"])
+    log(f"[accuracy 22.05 kHz quick] card {card_quick_s:.1f} s, CPU {cpu_quick_s:.1f} s; "
+        f"within-one-hop rates equal in {len(cpu_quick['categories']) - len(differ)} of "
+        f"{len(cpu_quick['categories'])} categories; mean confidences within {conf_diff:.3g} [{card}]")
+    if differ or list(card_quick["categories"]) != list(cpu_quick["categories"]):
+        raise AssertionError(f"the card's quick sweep differs from the CPU's in {differ}")
+    return {"full_44100": full, "full_s": full_s, "full_launches": launches, "comb_gate": comb,
+            "run_batched_44100": lagged, "run_batched_s": lagged_s,
+            "quick_22050_card_s": card_quick_s, "quick_22050_cpu_s": cpu_quick_s,
+            "quick_22050_confidence_max_diff": conf_diff, "min_accept": min_accept}
+
+
+TRACE_STEP = """
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as C
+from sonido_sonar_tpu_torch.models import FingerprintModel
+from sonido_sonar_tpu_torch.utils import parity
+torch.backends.cuda.matmul.allow_tf32 = False
+x = parity.synth_pcm(C.FULL_B, C.STREAM_CLIP_SECONDS * C.SR, C.SEED + 36, C.SR, "cuda")
+model = FingerprintModel(device="cuda")
+model(x)
+print(json.dumps(C.traced_step(model, x)))
+"""
+
+
+def traced_step(model, x: torch.Tensor) -> dict:
+    """One main-path step under utils.profiler_trace: the kernels its
+    Chrome trace names, and the launches counted around the step."""
+    from sonido_sonar_tpu_torch.utils import profiler_trace
+
+    with tempfile.TemporaryDirectory() as d:
+        zero_launches()
+        with profiler_trace(d):
+            model(x)
+        launches = read_launches()
+        traces = list(Path(d).glob("*.pt.trace.json"))
+        events = json.loads(traces[0].read_text())["traceEvents"] if len(traces) == 1 else []
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"files": len(traces), "events": len(events), "kernels": len(kernels),
+            "names_k1": any("stft_aux_kernel" in k for k in kernels), "launches": launches}
+
+
+def run_stream_phase(card: str, dev: torch.device) -> dict:
+    """Phase 36: one main-path step under profiler_trace in a fresh
+    process, whose trace must name K1's kernel (and the same step traced
+    in this process, logged); FingerprintModel over STREAM_BATCHES host batches
+    of FULL_B x 30 s, under run_stream(drain_every=2) and as blocking
+    calls, in turns (outputs bit-equal, in order; audio-hours per
+    wall-hour both ways; the busy share of one profiled window of the
+    stream); examples/batch_monitor at its defaults and at MONITOR_PAIRS x
+    MONITOR_SECONDS. Returns the {"stream": ...} numbers."""
+    from sonido_sonar_tpu_torch.examples import batch_monitor
+    from sonido_sonar_tpu_torch.models import FingerprintModel
+    from sonido_sonar_tpu_torch.parallel.pipeline import run_stream
+    from sonido_sonar_tpu_torch.utils import parity
+
+    base = parity.synth_pcm(FULL_B, STREAM_CLIP_SECONDS * SR, SEED + 36, SR).numpy()
+    batches = [np.roll(base, 4410 * k, axis=1) * np.float32(1.0 - 0.03 * k)
+               for k in range(STREAM_BATCHES)]
+    del base
+    audio_h = STREAM_BATCHES * FULL_B * STREAM_CLIP_SECONDS / 3600.0
+    model = FingerprintModel(device=dev)
+    model(torch.from_numpy(batches[0]).to(dev))
+    # the gate: one step traced in a fresh process, as a profiling run is
+    # made; the same step traced here, after the earlier phases, is logged
+    # (such traces lost their first kernel records, K1's among them)
+    proc = subprocess.run([sys.executable, "-c", TRACE_STEP, str(Path(__file__).resolve().parent)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the traced step failed: {proc.stderr[-3000:]}")
+    res = {"trace": json.loads(proc.stdout.strip().splitlines()[-1]),
+           "trace_in_this_process": traced_step(model, torch.from_numpy(batches[0]).to(dev))}
+    log(f"[profiler_trace] one main-path step in a fresh process: {res['trace']}; in this "
+        f"process: {res['trace_in_this_process']} [{card}]")
+    if not res["trace"]["names_k1"]:
+        raise AssertionError("profiler_trace: no trace naming K1's kernel")
+
+    def blocking():
+        outs = []
+        for b in batches:
+            outs.append(model(torch.from_numpy(b).to(dev)))
+            torch.cuda.synchronize()
+        return outs
+
+    def streamed():
+        return list(run_stream(model, batches, drain_every=2, device=dev))
+
+    # the first pass allocates the pinned staging buffers (cudaHostAlloc,
+    # then cached by torch's host allocator); a stream pays it once
+    _, _, cold_s = counted(lambda: list(run_stream(model, batches[:3], drain_every=2,
+                                                   device=dev)))
+    want, block_launches, block_s1 = counted(blocking)           # in turns: blocking,
+    got, stream_launches, stream_s1 = counted(streamed)          # streamed, streamed,
+    if len(got) != len(want):                                    # blocking
+        raise AssertionError(f"run_stream yielded {len(got)} results for {len(want)} batches")
+    for k, (g, w) in enumerate(zip(got, want)):
+        bad = [key for key in w if not torch.equal(g[key], w[key])]
+        if bad or sorted(g) != sorted(w):
+            raise AssertionError(f"run_stream step {k} differs from the blocking call in {bad}")
+    del got, want
+    if stream_launches["K1"] != STREAM_BATCHES or stream_launches["K2"] != STREAM_BATCHES:
+        raise AssertionError(f"run_stream: launches {stream_launches}")
+    stream_s2 = counted(streamed)[2]
+    block_s2 = counted(blocking)[2]
+    block_s, stream_s = (block_s1 + block_s2) / 2, (stream_s1 + stream_s2) / 2
+    busy = profile_step("run_stream 4 batches",
+                        lambda: list(run_stream(model, batches[:4], drain_every=2, device=dev)))
+    res.update({"batches": STREAM_BATCHES, "batch": FULL_B, "clip_s": STREAM_CLIP_SECONDS,
+                "first_pass_3_batches_s": cold_s, "blocking_s": [block_s1, block_s2],
+                "stream_s": [stream_s1, stream_s2], "launches": stream_launches,
+                "blocking_audio_h_per_wall_h": audio_h / (block_s / 3600.0),
+                "stream_audio_h_per_wall_h": audio_h / (stream_s / 3600.0),
+                "stream_busy_share": busy, "bit_equal": True})
+    log(f"[run_stream] {STREAM_BATCHES} host batches of {FULL_B} x {STREAM_CLIP_SECONDS} s, in "
+        f"turns: blocking {block_s1:.3f} and {block_s2:.3f} s "
+        f"({res['blocking_audio_h_per_wall_h']:.0f} audio-h per wall-h), "
+        f"run_stream(drain_every=2) {stream_s1:.3f} and {stream_s2:.3f} s "
+        f"({res['stream_audio_h_per_wall_h']:.0f}); the first pass over 3 batches (pinned "
+        f"buffers allocated) {cold_s:.3f} s; outputs bit-equal in order; launches "
+        f"{stream_launches}; busy {100 * busy:.1f} % of a profiled 4-batch window [{card}]")
+
+    for n_pairs, seconds in ((8, 12.0), (MONITOR_PAIRS, MONITOR_SECONDS)):
+        out, launches, wall_s = counted(lambda: batch_monitor.main(n_pairs, seconds, device=dev))
+        res[f"batch_monitor_{n_pairs}x{seconds:.0f}"] = {**out, "wall_s": wall_s,
+                                                         "launches": launches}
+        log(f"[batch_monitor {n_pairs} x {seconds:.0f} s] exact-sample recovery "
+            f"{out['exact']}/{n_pairs}, step {out['ms']:.2f} ms, launches {launches} [{card}]")
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     card = card_line()                                        # phase 1
@@ -2003,6 +2501,12 @@ def main() -> int:
 
     align = run_alignment(card, dev)                # phases 17-22
 
+    with tempfile.TemporaryDirectory(prefix="sonido_ingest_") as tmp:   # phases 33-34
+        corpus, ingest = run_ingest(card, Path(tmp))
+        latency = run_cdn_latency(card, dev, Path(tmp), corpus, info.seconds)
+    accuracy = run_accuracy(card, dev)                                  # phase 35
+    stream = run_stream_phase(card, dev)                                # phase 36
+
     for mod in ("jax", "sonido_sonar_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
@@ -2071,6 +2575,9 @@ def main() -> int:
         f"{fslice['step_ms_feat']:.2f} ms [{card}]")
     print(json.dumps({"comparator": comparator}), flush=True)
     print(json.dumps({"extractor_classes": classes}), flush=True)
+    for key, value in (("ingest", ingest), ("cdn_latency", latency), ("accuracy", accuracy),
+                       ("stream", stream)):
+        print(json.dumps({key: value}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -18,6 +18,9 @@ Entry points of the ported slices:
     feats = batched_fingerprint_features(pcm)   # pcm: [B, N] float32 tensor
 
     from sonido_sonar_tpu_torch.fingerprint import FingerprintGenerator
+    from sonido_sonar_tpu_torch.io import Decoder
+    audio = Decoder().decode_file("clip.wav")   # host float32 PCM
+    fp = FingerprintGenerator().generate_fingerprint(audio)
     fps = FingerprintGenerator().generate_fingerprints_batch(audios)
 
     from sonido_sonar_tpu_torch import FleetMonitor
@@ -26,6 +29,10 @@ Entry points of the ported slices:
     fleet.push_source_all(src)    # [64, L] chunks, tensors or arrays
     fleet.push_cdn_all(cdn)
     latencies = fleet.measure_all()
+
+The JAX examples and accuracy sweep run as modules:
+`python -m sonido_sonar_tpu_torch.examples.cdn_latency src.wav cdn.wav`,
+`python -m sonido_sonar_tpu_torch.eval_accuracy --full`.
 
 This package never imports JAX or `sonido_sonar_tpu`.
 """

@@ -19,6 +19,8 @@ Counterpart of `sonido_sonar_tpu/parallel/pipeline.py`:
   banded DTW fill and backtrack kernels), `batched_refine_offsets`,
   `batched_phat_candidates` and `batched_phat_global` (GCC-PHAT, plain
   `torch.fft` on every device).
+- `run_stream`: a stream of [B, N] batches through any of them with the
+  uploads and steps overlapping the host.
 On a CPU tensor every kernel runs its plain PyTorch version. Each
 function takes `device` (the card by default): a tensor stays on its own
 device, numpy input goes to `device` (utils/device.as_float32).
@@ -26,9 +28,11 @@ device, numpy input goes to `device` (utils/device.as_float32).
 
 from __future__ import annotations
 
+import collections
 import os
-from typing import Dict
+from typing import Callable, Dict, Iterable, Iterator
 
+import numpy as np
 import torch
 
 from sonido_sonar_tpu_torch.config.config import WindowType
@@ -454,3 +458,53 @@ def batched_phat_global(
     peaks = torch.gather(window, -1, idx[..., None])[..., 0]
     offsets = -(idx.to(torch.int32) - max_lag).to(torch.float32) / float(sample_rate)
     return offsets, peaks
+
+
+def run_stream(
+    pipeline: Callable,
+    batches: Iterable,
+    drain_every: int = 2,
+    device: Device = DEFAULT_DEVICE,
+) -> Iterator:
+    """Run `pipeline` over an iterable of [B, N] PCM batches with input
+    overlap (counterpart of JAX's `run_stream`, parallel/pipeline.py:546).
+
+    A numpy batch bound for the card is staged in pinned host memory and
+    uploaded by a non-blocking copy (what JAX's asynchronous `device_put`
+    gives), so its upload and step overlap the host's use of earlier
+    results; other numpy batches go to `device`, a tensor stays on its own.
+    A CUDA event recorded after each step marks it done: at most
+    `drain_every + 1` steps are in flight, and each result is yielded, in
+    order, once its event has completed. A step's staging buffer is held
+    until then, so no buffer is reused while its copy may be reading it.
+    `pipeline` is any callable on a [B, N] batch (`models.FingerprintModel`,
+    a partial of `batched_fingerprint_features`).
+    """
+    dev = torch.device(device)
+    inflight = collections.deque()
+
+    def drained():
+        out, done, _staged = inflight.popleft()
+        if done is not None:
+            done.synchronize()
+        return out
+
+    for batch in batches:
+        staged = None
+        if dev.type == "cuda" and not isinstance(batch, torch.Tensor):
+            host = torch.from_numpy(np.asarray(batch, dtype=np.float32))
+            staged = torch.empty(host.shape, dtype=torch.float32, pin_memory=True)
+            staged.copy_(host)  # torch's copy runs on every host core
+            x = staged.to(dev, non_blocking=True)
+        else:
+            x = as_float32(batch, dev)
+        out = pipeline(x)
+        done = None
+        if x.is_cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(x.device))
+        inflight.append((out, done, staged))
+        if len(inflight) > drain_every:
+            yield drained()
+    while inflight:
+        yield drained()

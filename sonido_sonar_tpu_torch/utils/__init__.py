@@ -6,4 +6,8 @@ from sonido_sonar_tpu_torch.utils.serialize import (  # noqa: F401
     load_fingerprint_npz,
     save_fingerprint_npz,
 )
-from sonido_sonar_tpu_torch.utils.metrics import Metrics, get_global_metrics  # noqa: F401
+from sonido_sonar_tpu_torch.utils.metrics import (  # noqa: F401
+    Metrics,
+    get_global_metrics,
+    profiler_trace,
+)

@@ -3,13 +3,15 @@
 Counterpart of `sonido_sonar_tpu/utils/metrics.py` (`Metrics.count`,
 `timer`, `record_audio`, `snapshot`, `reset`, `get_global_metrics`).
 `timer(block_on=...)` takes a tensor or a device: on a CUDA device the
-stage ends with `torch.cuda.synchronize`, so device work counts. The
-profiler hook is not ported yet (ROADMAP).
+stage ends with `torch.cuda.synchronize`, so device work counts.
+`profiler_trace(log_dir)` is JAX's `jax.profiler` trace context on
+`torch.profiler`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
@@ -78,3 +80,27 @@ _global = Metrics()
 
 def get_global_metrics() -> Metrics:
     return _global
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str) -> Iterator[None]:
+    """torch.profiler trace context: the host's operators and, where a
+    card is present, its kernels, written as a Chrome trace
+    (`<host>_<pid>.<ns>.pt.trace.json`) into `log_dir` on exit. On a card
+    the device is synchronized before the trace starts and before it
+    stops, so the trace holds the block's device work, all of it."""
+    cuda = torch.cuda.is_available()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
+    ):
+        try:
+            yield
+        finally:
+            if cuda:
+                torch.cuda.synchronize()

@@ -5,7 +5,7 @@ a module that the port also has must import from the port's package of
 the same path (`from sonido_sonar_tpu_torch.extractors import
 SpeechFeatureExtractor`, as `from sonido_sonar_tpu.extractors import
 SpeechFeatureExtractor`). Names of modules the port does not have yet
-(the mesh, decoding, warm-up) are ROADMAP's open items and are
+(the mesh, warm-up) are ROADMAP's open items and are
 not asked for; names that a ported module
 still lacks are listed in NOT_PORTED, so the list stays exact. The JAX
 `__init__` files are read as source, not imported.
@@ -34,15 +34,14 @@ from sonido_sonar_tpu_torch.ops import speech as tspeech  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 JAX_PKG, PORT_PKG = "sonido_sonar_tpu", "sonido_sonar_tpu_torch"
-# the JAX packages that the port also has (not io/native)
+# the JAX packages that the port also has
 JAX_INITS = sorted(p.relative_to(ROOT / JAX_PKG).parent.as_posix()
                    for p in (ROOT / JAX_PKG).rglob("__init__.py")
                    if (ROOT / PORT_PKG / p.relative_to(ROOT / JAX_PKG)).is_file())
 # (port module, name): exported by a JAX __init__, the module ported,
-# the name not yet (ROADMAP items 21 and 20)
+# the name not yet (ROADMAP item 21)
 NOT_PORTED = {
     ("sonido_sonar_tpu_torch.parallel.pipeline", "BatchedFingerprintPipeline"),
-    ("sonido_sonar_tpu_torch.utils.metrics", "profiler_trace"),
 }
 
 
