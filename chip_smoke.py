@@ -213,16 +213,38 @@ entry points, from WAV files in a temporary directory):
      outputs bit-equal in order, audio-hours per wall-hour both ways, the
      busy share of a profiled window; examples.batch_monitor.main at its
      defaults and at 64 pairs x 60 s (exact-sample recovery); one
-     main-path step under utils.profiler_trace in a fresh process, its
-     trace naming K1's kernel (the same step traced in this process is
-     logged)
+     main-path step under utils.profiler_trace in a fresh process and
+     the same step 3 times in this process, each trace holding a kernel
+     record for each of its launch calls (as many calls in all) and
+     naming K1's kernel (the same step traced here by a bare
+     torch.profiler session, without profiler_trace's warm-up step, in
+     turns with those, is logged)
+
+Phase 37 runs last (the music-analysis ops):
+ 37. the music program with enable_cqt and enable_hpcp at B=128 x 30 s
+     on phase 13's clips: K1 launched twice and K4 three times, the
+     schema's shapes with chroma_cqt [128, 2568, 12] and hpcp [128,
+     5164, 12], unit-sum CQT and unit-energy HPCP rows, steps in turns
+     with the options-off program, chroma_cqt and hpcp_from_magnitude
+     timed apart (CUDA events), peak device memory; the same call card
+     against CPU at [2, 44100] and at 16 kHz; the tonal surface on the
+     card held to the CPU on 4 clips: KeyEstimator.estimate_key_sequence,
+     ChordDetector.detect_sequence and ChordProgressionAnalyzer.analyze
+     over the program's chroma of 4 clips whose chords and key change
+     (the keys, modulations and chord changes must not be all alike),
+     PitchDetector.detect_track for every method and the yin+acf hybrid
+     (1024/512, run at full width), HarmonicRatioAnalyzer.analyze_spectrum
+     and spectral_snr, analyze_inharmonicity and analyze_vibrato over the
+     full-width magnitudes and tracks, HarmonicTracking on one clip; each
+     tonal op timed as the median of 3 calls after a warm-up
 
 A {"comparator": {...}} line (the card, phases 28-29's gates, launch
 counts and times), an {"extractor_classes": {...}} line (phases
 30-32's launch counts, step times, peak memory and the streamer's
-numbers) and the {"ingest": ...}, {"cdn_latency": ...}, {"accuracy": ...}
-and {"stream": ...} lines of phases 33-36 (each path's kernel launches,
-counted from 0 just before it) come before the kernels line. The second-to-last line
+numbers) and the {"ingest": ...}, {"cdn_latency": ...}, {"accuracy": ...},
+{"stream": ...} and {"music_analysis": ...} lines of phases 33-37 (each
+path's kernel launches, counted from 0 just before it) come before the
+kernels line. The second-to-last line
 is {"kernels": [...]}: for each kernel its
 launches on its path, its largest error against its plain version, its
 time, the plain version's, its bound (the larger of the bytes it must move
@@ -367,6 +389,25 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def warm_median_ms(fn, iters: int):
+    """(fn()'s result, the median ms of `iters` more calls): one warm-up
+    call first (cuFFT plans, allocator growth), then CUDA events around
+    each call, the device synchronized before each; for a call that waits
+    on the host the time spans its host work too."""
+    out = fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return out, float(np.median(times))
 
 
 def cold_ms(fn, iters: int) -> float:
@@ -1587,6 +1628,7 @@ LATENCY_LAG = int(1.234 * SR) + 137       # phase 34's injected CDN delay, off t
 QUERY_FILE = 17                           # phase 34's corpus query: this file plus noise
 STREAM_BATCHES, STREAM_CLIP_SECONDS = 8, 30  # phase 36: host batches of FULL_B clips
 MONITOR_PAIRS, MONITOR_SECONDS = 64, 60.0    # phase 36: batch_monitor at fleet width
+TRACE_ROUNDS = 3                              # phase 36: in-process traces, each gated
 
 
 def kernel_wrappers() -> dict:
@@ -1936,29 +1978,48 @@ print(json.dumps(C.traced_step(model, x)))
 """
 
 
-def traced_step(model, x: torch.Tensor) -> dict:
-    """One main-path step under utils.profiler_trace: the kernels its
-    Chrome trace names, and the launches counted around the step."""
+def traced_step(model, x: torch.Tensor, bare: bool = False) -> dict:
+    """One main-path step under utils.profiler_trace (or, `bare`, a plain
+    torch.profiler session with the same trace handler and no warm-up):
+    the kernel records its Chrome trace holds, the host's kernel launches
+    it holds (runtime or driver launch calls), the least time from a
+    launch call to its kernel's start (negative when the device records'
+    clock leads the host's), and the launches counted around the step."""
     from sonido_sonar_tpu_torch.utils import profiler_trace
+
+    def bare_trace(d):
+        torch.cuda.synchronize()
+        return torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA],
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(d))
 
     with tempfile.TemporaryDirectory() as d:
         zero_launches()
-        with profiler_trace(d):
+        with (bare_trace if bare else profiler_trace)(d):
             model(x)
+            torch.cuda.synchronize()
         launches = read_launches()
         traces = list(Path(d).glob("*.pt.trace.json"))
         events = json.loads(traces[0].read_text())["traceEvents"] if len(traces) == 1 else []
-    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    calls = {e["args"]["correlation"]: e["ts"] for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver") and "LaunchKernel" in e.get("name", "")
+             and "correlation" in e.get("args", {})}
+    lags = [k["ts"] - calls[k["args"]["correlation"]] for k in kernels
+            if k.get("args", {}).get("correlation") in calls]
     return {"files": len(traces), "events": len(events), "kernels": len(kernels),
-            "names_k1": any("stft_aux_kernel" in k for k in kernels), "launches": launches}
+            "launch_calls": len(calls), "min_launch_to_kernel_us": min(lags, default=None),
+            "names_k1": any("stft_aux_kernel" in k.get("name", "") for k in kernels),
+            "launches": launches}
 
 
 def run_stream_phase(card: str, dev: torch.device) -> dict:
     """Phase 36: one main-path step under profiler_trace in a fresh
-    process, whose trace must name K1's kernel (and the same step traced
-    in this process, logged); FingerprintModel over STREAM_BATCHES host batches
-    of FULL_B x 30 s, under run_stream(drain_every=2) and as blocking
-    calls, in turns (outputs bit-equal, in order; audio-hours per
+    process and TRACE_ROUNDS times in this one, each trace holding a kernel record for each
+    of its launch calls and naming K1's kernel (the same step under a
+    bare torch.profiler session in turns, logged); FingerprintModel over
+    STREAM_BATCHES host batches of FULL_B x 30 s, under
+    run_stream(drain_every=2) and as blocking calls, in turns (outputs bit-equal, in order; audio-hours per
     wall-hour both ways; the busy share of one profiled window of the
     stream); examples/batch_monitor at its defaults and at MONITOR_PAIRS x
     MONITOR_SECONDS. Returns the {"stream": ...} numbers."""
@@ -1974,19 +2035,31 @@ def run_stream_phase(card: str, dev: torch.device) -> dict:
     audio_h = STREAM_BATCHES * FULL_B * STREAM_CLIP_SECONDS / 3600.0
     model = FingerprintModel(device=dev)
     model(torch.from_numpy(batches[0]).to(dev))
-    # the gate: one step traced in a fresh process, as a profiling run is
-    # made; the same step traced here, after the earlier phases, is logged
-    # (such traces lost their first kernel records, K1's among them)
+    # the gates: one step traced in a fresh process, as a profiling run is
+    # made, and the same step traced here, after the earlier phases, each
+    # holding a kernel record for each launch call it recorded (K1's
+    # named, as many calls in both); the same step under a bare session
+    # is logged (such traces lost their first kernel records, K1's among
+    # them, and kept every launch call)
     proc = subprocess.run([sys.executable, "-c", TRACE_STEP, str(Path(__file__).resolve().parent)],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"the traced step failed: {proc.stderr[-3000:]}")
+    x0 = torch.from_numpy(batches[0]).to(dev)
+    rounds = [(traced_step(model, x0, bare=True), traced_step(model, x0)) for _ in range(TRACE_ROUNDS)]
     res = {"trace": json.loads(proc.stdout.strip().splitlines()[-1]),
-           "trace_in_this_process": traced_step(model, torch.from_numpy(batches[0]).to(dev))}
+           "trace_in_this_process_bare": [b for b, _ in rounds],
+           "trace_in_this_process": [t for _, t in rounds]}
     log(f"[profiler_trace] one main-path step in a fresh process: {res['trace']}; in this "
-        f"process: {res['trace_in_this_process']} [{card}]")
-    if not res["trace"]["names_k1"]:
-        raise AssertionError("profiler_trace: no trace naming K1's kernel")
+        f"process, in turns, under a bare torch.profiler session: {res['trace_in_this_process_bare']}; "
+        f"under profiler_trace: {res['trace_in_this_process']} [{card}]")
+    for where, got in [("a fresh process", res["trace"])] + [
+            (f"this process, round {i}", t) for i, t in enumerate(res["trace_in_this_process"])]:
+        if (not got["names_k1"] or got["kernels"] != got["launch_calls"]
+                or got["launch_calls"] != res["trace"]["launch_calls"] or got["launches"]["K1"] != 1):
+            raise AssertionError(f"profiler_trace ({where}): {got['kernels']} kernel records of "
+                                 f"{got['launch_calls']} launch calls ({res['trace']['launch_calls']} "
+                                 f"in a fresh process), K1 named: {got['names_k1']}")
 
     def blocking():
         outs = []
@@ -2041,6 +2114,294 @@ def run_stream_phase(card: str, dev: torch.device) -> dict:
     return res
 
 
+def near_zero_for(x: torch.Tensor, music: bool) -> np.ndarray:
+    """Frames exempt from the exact ZCR comparison (utils/parity): a
+    sample near 0 after the path's preprocessing, from CPU PCM."""
+    from sonido_sonar_tpu_torch.ops.filters import dc_removal, pre_emphasis_for_content
+    from sonido_sonar_tpu_torch.utils import parity
+
+    if music:
+        pre = pre_emphasis_for_content(dc_removal(x), "music").numpy()
+        return parity.near_zero_frames(pre, WINDOW, HOP, 0.0, parity.DC_NEAR_ZERO)
+    return parity.near_zero_frames(x.numpy(), WINDOW, HOP, 0.97)
+
+
+def chord_margin(chroma: np.ndarray) -> np.ndarray:
+    """The gap between the two best chord templates of each frame (chord
+    indices within 1e-5 of a tie are exempt, utils/parity)."""
+    from sonido_sonar_tpu_torch.ops.tonal import CHORD_MATRIX
+
+    cn = chroma / np.maximum(np.linalg.norm(chroma, axis=-1, keepdims=True), 1e-10)
+    sims = np.sort(cn @ CHORD_MATRIX.T, axis=-1)
+    return sims[..., -1] - sims[..., -2]
+
+
+MUSIC_OPTION_STEPS = 3   # phase 37: timed steps of each music configuration, in turns
+TONAL_CLIPS = 4          # phase 37: clips whose tonal surface is held to the CPU
+TONAL_ITERS = 3          # phase 37: timed calls of each tonal op after its warm-up
+PITCH_METHODS = ("yin", "acf", "nsdf", "cepstrum", "hps", "zcr", "peaks", "yin+acf")
+MODULATIONS = (7, 5, 2, 9)  # phase 37: semitones each chord clip's second half is raised
+
+
+def chord_clips(count: int, seconds: int) -> torch.Tensor:
+    """[count, seconds * SR] clips whose chords and key change: the first
+    half io.synth.music_like (C major's I-V-vi-IV, a chord each 2 s, a
+    melody note and a beat), the second half the same recipe with another
+    seed raised by MODULATIONS[i] semitones (resampled by linear
+    interpolation), each clip at its own tempo."""
+    from sonido_sonar_tpu_torch.io.synth import music_like
+
+    half = seconds * SR // 2
+    out = []
+    for i in range(count):
+        r = 2.0 ** (MODULATIONS[i % len(MODULATIONS)] / 12)
+        tempo = 90.0 + 8 * i
+        first = music_like(half / SR, SR, tempo, seed=SEED + 300 + i)
+        src = music_like(half * r / SR + 0.01, SR, tempo, seed=SEED + 400 + i)
+        second = np.interp(np.arange(half) * r, np.arange(len(src)), src)
+        out.append(np.concatenate([first, second]))
+    return torch.from_numpy(np.stack(out).astype(np.float32))
+
+
+def _same_chords(what: str, got, ref) -> int:
+    """ChordDetector.detect_sequence on the card and the CPU, frame by
+    frame: the same chord, or one whose CPU score is within MUSIC_TIE of
+    the CPU's best. Returns the count of such near-tied frames."""
+    from sonido_sonar_tpu_torch.utils import parity
+
+    ties = 0
+    for t, (g, r) in enumerate(zip(got, ref, strict=True)):
+        if g.chord == r.chord:
+            continue
+        score = {(c.root, c.quality): c.score for c in r.candidates}.get((g.root, g.quality))
+        if score is None or r.candidates[0].score - score > parity.MUSIC_TIE:
+            raise AssertionError(f"{what} frame {t}: {g.chord} on the card, {r.chord} on the CPU")
+        ties += 1
+    return ties
+
+
+def _same_keys(what: str, got, ref) -> None:
+    """KeyEstimator results on the card and the CPU: correlations within
+    MUSIC_RTOL / MUSIC_ATOL, the key where the top two are not near-tied,
+    the stability and the modulations' windows equal."""
+    from sonido_sonar_tpu_torch.utils import parity
+
+    require(parity_close(what, got.all_correlations, ref.all_correlations, parity.MUSIC_RTOL,
+                         parity.MUSIC_ATOL), what)
+    if ref.confidence > parity.MUSIC_TIE and (got.key, got.mode) != (ref.key, ref.mode):
+        raise AssertionError(f"{what}: {got.key} {got.mode} on the card, {ref.key} {ref.mode} on the CPU")
+    if got.stability != ref.stability or [m["window"] for m in got.modulations] != [
+            m["window"] for m in ref.modulations]:
+        raise AssertionError(f"{what}: stability or modulations differ")
+
+
+def parity_close(name: str, got, ref, rtol: float, atol) -> tuple:
+    """utils/parity's element check as a (errors, failures) report."""
+    from sonido_sonar_tpu_torch.utils import parity
+
+    errors, failures = {}, []
+    parity._close(name, got, ref, rtol, atol, errors, failures)
+    return errors, failures
+
+
+def run_music_analysis(card: str, dev: torch.device) -> dict:
+    """Phase 37: the music program with both options on (CQT and HPCP
+    chromas) at B=128 x 30 s on phase 13's clips (launch counts, shapes,
+    unit-sum CQT and unit-energy HPCP rows, steps in turns with the
+    options-off program, CQT and HPCP ms apart by CUDA events, peak
+    memory), the same call card against CPU at [2, 44100] and at 16 kHz,
+    and the tonal surface on the card held to the CPU on TONAL_CLIPS
+    clips: key sequences, chord sequences and progressions over the music
+    program's chroma of chord_clips, PitchDetector.detect_track for every
+    method and a hybrid (run at full width, rows held), the spectral HNR
+    and SNR, the inharmonicity and the vibrato over the full-width
+    magnitudes and tracks, and HarmonicTracking on one clip, each timed
+    by warm_median_ms. Returns the {"music_analysis": ...} numbers."""
+    from sonido_sonar_tpu_torch.ops import tonal, tracking
+    from sonido_sonar_tpu_torch.ops.chroma import chroma_cqt, hpcp_from_magnitude
+    from sonido_sonar_tpu_torch.ops.hopper_stft import stft_magnitude_hopper
+    from sonido_sonar_tpu_torch.parallel.pipeline import batched_music_extractor_features
+    from sonido_sonar_tpu_torch.utils import parity
+
+    n_full = FULL_SECONDS * SR
+    t_frames = (n_full - WINDOW) // HOP + 1
+    t_cqt = (n_full - 8192) // 512 + 1
+    clips = parity.harmonic_clips(FULL_B, n_full, SEED + 6, SR, 196.0, dev)
+
+    def on():
+        return batched_music_extractor_features(clips, SR, WINDOW, HOP, enable_cqt=True, enable_hpcp=True)
+
+    def off():
+        return batched_music_extractor_features(clips, SR, WINDOW, HOP)
+
+    res: dict = {"batch": FULL_B, "clip_s": FULL_SECONDS}
+    for label, fn in (("off", off), ("on", on)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, launches, _ = counted(fn)
+        res[f"peak_mib_{label}"] = torch.cuda.max_memory_allocated() / 2**20
+        if launches["K1"] != 2 or launches["K4"] != 3 or sum(launches.values()) != 5:
+            raise AssertionError(f"phase 37: the music program ({label}) launched {launches}")
+        res[f"launches_{label}"] = {k: v for k, v in launches.items() if v}
+    schema = {**music_schema(FULL_B, n_full), "chroma_cqt": (FULL_B, t_cqt, 12),
+              "hpcp": (FULL_B, t_frames, 12)}
+    check_surface("music program with CQT and HPCP", out, schema, MUSIC_INTS)
+    cqt_sum = out["chroma_cqt"].sum(-1)
+    hpcp_norm = torch.linalg.vector_norm(out["hpcp"], dim=-1)
+    res["cqt_row_sum_err"] = float((cqt_sum[cqt_sum > 0] - 1).abs().max())
+    res["hpcp_row_norm_err"] = float((hpcp_norm[hpcp_norm > 0] - 1).abs().max())
+    res["hpcp_zero_rows"] = int((hpcp_norm == 0).sum())
+    if res["cqt_row_sum_err"] > 1e-5 or res["hpcp_row_norm_err"] > 1e-5 or not bool((cqt_sum > 0).all()):
+        raise AssertionError(f"phase 37: CQT rows not unit-sum or HPCP rows not unit-energy: {res}")
+    del out
+    log(f"[music program with CQT and HPCP B={FULL_B} x {FULL_SECONDS} s] launches "
+        f"{res['launches_on']}; chroma_cqt [{FULL_B}, {t_cqt}, 12] rows sum to 1 within "
+        f"{res['cqt_row_sum_err']:.2g}, hpcp [{FULL_B}, {t_frames}, 12] unit energy within "
+        f"{res['hpcp_row_norm_err']:.2g} ({res['hpcp_zero_rows']} all-zero rows); peak device memory "
+        f"{res['peak_mib_on']:.0f} MiB (options off {res['peak_mib_off']:.0f}) [{card}]")
+
+    steps = {"off": [], "on": []}
+    for label in ("off", "on", "on", "off"):                      # in turns
+        steps[label] += timed_steps(on if label == "on" else off, MUSIC_OPTION_STEPS)
+    audio_s = FULL_B * FULL_SECONDS
+    for label in ("off", "on"):
+        res[f"step_ms_{label}"] = report_steps(f"music program, options {label}, B={FULL_B} x "
+                                               f"{FULL_SECONDS} s (in turns)", steps[label], audio_s, card)
+        res[f"audio_h_per_wall_h_{label}"] = audio_s / (res[f"step_ms_{label}"] / 1e3)
+
+    mag = stft_magnitude_hopper(clips, WINDOW, HOP)[0]
+    for name, fn in (("cqt", lambda: chroma_cqt(clips, SR)),
+                     ("hpcp", lambda: hpcp_from_magnitude(mag, SR, WINDOW))):
+        fn()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res[f"{name}_ms"] = cuda_ms(fn, 3)
+        res[f"{name}_peak_mib_above_inputs"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    log(f"[music options apart, CUDA events] chroma_cqt {res['cqt_ms']:.2f} ms (peak "
+        f"{res['cqt_peak_mib_above_inputs']:.0f} MiB above its input), hpcp_from_magnitude "
+        f"{res['hpcp_ms']:.2f} ms ({res['hpcp_peak_mib_above_inputs']:.0f} MiB) at B={FULL_B} x "
+        f"{FULL_SECONDS} s; step with options {res['step_ms_on']:.2f} ms against "
+        f"{res['step_ms_off']:.2f} without [{card}]")
+
+    # card against CPU, the same call at [2, 44100] and at 16 kHz
+    for sr, seed, f0 in ((SR, SEED + 8, 196.0), (16000, SEED + 8, 196.0)):
+        small = parity.harmonic_clips(2, sr, seed, sr, f0)
+        kw = dict(enable_cqt=True, enable_hpcp=True)
+        card_out = {k: np32(v) for k, v in batched_music_extractor_features(small.to(dev), sr, **kw).items()}
+        cpu_out = {k: v.numpy() for k, v in batched_music_extractor_features(small, sr, **kw).items()}
+        errors = require(parity.check_extracted(
+            card_out, cpu_out, sr, WINDOW, near_zero=near_zero_for(small, True), n_samples=sr,
+            chord_margin=chord_margin(cpu_out["chroma"])),
+            f"music program with CQT and HPCP [2, {sr}], card vs CPU")
+        res[f"card_vs_cpu_{sr}"] = {k: v for k, v in errors.items() if "hpcp" in k or "cqt" in k}
+
+    # the tonal surface: keys and chords over the program's chroma of
+    # TONAL_CLIPS clips whose chords and key change
+    chroma = batched_music_extractor_features(chord_clips(TONAL_CLIPS, FULL_SECONDS).to(dev), SR,
+                                              WINDOW, HOP)["chroma"]
+
+    def keys_chords():
+        return ([tonal.KeyEstimator(device=dev).estimate_key_sequence(c) for c in chroma],
+                [tonal.ChordProgressionAnalyzer(device=dev).analyze(c) for c in chroma])
+
+    (keys_card, prog_card), res["keys_chords_card_ms"] = warm_median_ms(keys_chords, TONAL_ITERS)
+    res["chord_ties"] = []
+    for i, c in enumerate(chroma.cpu()):
+        _same_keys(f"KeyEstimator.estimate_key_sequence clip {i}, card vs CPU", keys_card[i],
+                   tonal.KeyEstimator(device="cpu").estimate_key_sequence(c))
+        ties = _same_chords(f"ChordDetector.detect_sequence clip {i}, card vs CPU",
+                            tonal.ChordDetector(device=dev).detect_sequence(chroma[i]),
+                            tonal.ChordDetector(device="cpu").detect_sequence(c))
+        if not ties and prog_card[i] != tonal.ChordProgressionAnalyzer(device="cpu").analyze(c):
+            raise AssertionError(f"ChordProgressionAnalyzer clip {i}: card and CPU differ")
+        res["chord_ties"].append(ties)
+    res["keys"] = [f"{k.key} {k.mode}" for k in keys_card]
+    res["modulations"] = [len(k.modulations) for k in keys_card]
+    res["chord_changes"] = [p["num_changes"] for p in prog_card]
+    if len(set(res["keys"])) < 2 or not sum(res["modulations"]) or not all(res["chord_changes"]):
+        raise AssertionError(f"phase 37: the chord clips' keys or chords do not change: {res['keys']}, "
+                             f"modulations {res['modulations']}, chord changes {res['chord_changes']}")
+    log(f"[tonal: keys and chords over {TONAL_CLIPS} x {t_frames} chroma frames of chord clips] keys "
+        f"{res['keys']}, modulations {res['modulations']}, chord changes {res['chord_changes']}, equal "
+        f"to the CPU's (near-tied frames {res['chord_ties']}); {res['keys_chords_card_ms']:.1f} ms on "
+        f"the card (median of {TONAL_ITERS} after a warm-up) [{card}]")
+
+    # the pitch facade: full width on the card, TONAL_CLIPS rows held to the CPU
+    res["pitch_ms"] = {}
+    tracks = {}
+    for method in PITCH_METHODS:
+        det = tonal.PitchDetector(SR, method, device=dev)
+        got, res["pitch_ms"][method] = warm_median_ms(
+            lambda: det.detect_track(clips, PITCH_WINDOW, PITCH_HOP), TONAL_ITERS)
+        p = np32(got.pitch)
+        if p.shape != (FULL_B, (n_full - PITCH_WINDOW) // PITCH_HOP + 1) or not np.isfinite(p).all():
+            raise AssertionError(f"PitchDetector {method}: pitch {p.shape}")
+        ref = tonal.PitchDetector(SR, method, device="cpu").detect_track(
+            clips[:TONAL_CLIPS].cpu(), PITCH_WINDOW, PITCH_HOP)
+        args = (p[:TONAL_CLIPS], np32(got.confidence)[:TONAL_CLIPS], ref.pitch.numpy(), ref.confidence.numpy())
+        check = parity.check_pitch if method == "yin" else parity.check_pitch_decisions
+        require(check(*args), f"PitchDetector({method!r}).detect_track rows 0-{TONAL_CLIPS - 1}, card vs CPU")
+        tracks[method] = got.pitch
+    log(f"[PitchDetector.detect_track B={FULL_B} x {FULL_SECONDS} s, 1024/512] ms by method (median of "
+        f"{TONAL_ITERS} after a warm-up) { {k: round(v, 2) for k, v in res['pitch_ms'].items()} } [{card}]")
+
+    # HNR, SNR and inharmonicity over the full-width magnitudes
+    an = tonal.HarmonicRatioAnalyzer(SR, device=dev)
+    an_cpu = tonal.HarmonicRatioAnalyzer(SR, device="cpu")
+    mag_cpu = mag[:TONAL_CLIPS].cpu()
+    for name, fn, fn_cpu in (
+        ("analyze_spectrum", lambda: an.analyze_spectrum(mag, WINDOW), lambda: an_cpu.analyze_spectrum(mag_cpu, WINDOW)),
+        ("spectral_snr", lambda: an.spectral_snr(mag, WINDOW), lambda: an_cpu.spectral_snr(mag_cpu, WINDOW)),
+    ):
+        torch.cuda.reset_peak_memory_stats()
+        got, res[f"{name}_ms"] = warm_median_ms(fn, TONAL_ITERS)
+        res[f"{name}_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        require(parity_close(name, np32(got)[:TONAL_CLIPS], fn_cpu().numpy(), *parity.MUSIC_DB_TOL),
+                f"HarmonicRatioAnalyzer.{name} [{FULL_B}, {t_frames}, 513] rows 0-{TONAL_CLIPS - 1}, card vs CPU")
+    f0 = torch.full(mag.shape[:-1], 196.0, device=dev)
+    inh, res["inharmonicity_ms"] = warm_median_ms(
+        lambda: tonal.analyze_inharmonicity(mag, f0, SR, WINDOW), TONAL_ITERS)
+    inh_cpu = tonal.analyze_inharmonicity(mag_cpu, f0[:TONAL_CLIPS].cpu(), SR, WINDOW)
+    if not np.array_equal(np32(inh.num_partials)[:TONAL_CLIPS], inh_cpu.num_partials.numpy()):
+        raise AssertionError("analyze_inharmonicity: partial counts differ, card vs CPU")
+    require(parity_close("inharmonicity", np32(inh.inharmonicity)[:TONAL_CLIPS], inh_cpu.inharmonicity.numpy(),
+                         parity.MUSIC_RTOL, parity.MUSIC_ATOL), "analyze_inharmonicity, card vs CPU")
+
+    # vibrato: the YIN track, and tracks with 4-8 Hz vibrato at the same frame rate
+    frame_rate = SR / PITCH_HOP
+    t = torch.arange(tracks["yin"].shape[-1], device=dev) / frame_rate
+    rate = torch.linspace(4.0, 8.0, FULL_B, device=dev)[:, None]
+    synth = 200.0 + 8.0 * torch.sin(2 * np.pi * rate * t)
+    for label, track in (("yin track", tracks["yin"]), ("4-8 Hz vibrato", synth)):
+        got, ms = warm_median_ms(lambda: tonal.analyze_vibrato(track, PITCH_HOP, SR), TONAL_ITERS)
+        ref = tonal.analyze_vibrato(track[:TONAL_CLIPS].cpu(), PITCH_HOP, SR)
+        if not np.array_equal(np32(got["has_vibrato"])[:TONAL_CLIPS], ref["has_vibrato"].numpy()):
+            raise AssertionError(f"analyze_vibrato ({label}): has_vibrato differs, card vs CPU")
+        for k in ("vibrato_rate_hz", "vibrato_extent_hz"):
+            require(parity_close(k, np32(got[k])[:TONAL_CLIPS], ref[k].numpy(), *parity.VIBRATO_TOL),
+                    f"analyze_vibrato ({label}) {k}, card vs CPU")
+        res[f"vibrato_{label.split()[0]}_ms"] = ms
+    if not bool(got["has_vibrato"].all()):
+        raise AssertionError("analyze_vibrato: a 4-8 Hz vibrato track reads as none")
+
+    # partial tracking on one clip's spectrogram
+    trk = tracking.HarmonicTracking(SR, device=dev)
+    got, res["tracking_ms"] = warm_median_ms(lambda: trk.process_magnitude_spectrogram(mag[0], WINDOW),
+                                             TONAL_ITERS)
+    ref = tracking.HarmonicTracking(SR, device="cpu").process_magnitude_spectrogram(mag_cpu[0], WINDOW)
+    if [vars(x) for x in got.tracks] != [vars(x) for x in ref.tracks]:
+        raise AssertionError("HarmonicTracking: the tracks differ, card vs CPU")
+    res["tracks"] = got.num_tracks
+    log(f"[tonal on the full-width magnitudes] analyze_spectrum {res['analyze_spectrum_ms']:.1f} ms "
+        f"(peak {res['analyze_spectrum_peak_mib']:.0f} MiB), spectral_snr {res['spectral_snr_ms']:.1f} ms, "
+        f"analyze_inharmonicity {res['inharmonicity_ms']:.1f} ms, analyze_vibrato "
+        f"{res['vibrato_yin_ms']:.1f} ms; HarmonicTracking on one {t_frames}-frame clip "
+        f"{got.num_tracks} tracks in {res['tracking_ms']:.1f} ms (each the median of {TONAL_ITERS} "
+        f"after a warm-up); all held to the CPU [{card}]")
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     card = card_line()                                        # phase 1
@@ -2068,21 +2429,7 @@ def main() -> int:
         batched_speech_extractor_features,
     )
     from sonido_sonar_tpu_torch.utils import parity
-    from sonido_sonar_tpu_torch.ops.tonal import CHORD_MATRIX
     from sonido_sonar_tpu_torch.utils.convert import features_to_numpy, flatten_features
-
-    def near_zero_for(x, music: bool):
-        """Frames exempt from the exact ZCR comparison (utils/parity): a
-        sample near 0 after the path's preprocessing, from CPU PCM."""
-        if music:
-            pre = pre_emphasis_for_content(dc_removal(x), "music").numpy()
-            return parity.near_zero_frames(pre, WINDOW, HOP, 0.0, parity.DC_NEAR_ZERO)
-        return parity.near_zero_frames(x.numpy(), WINDOW, HOP, 0.97)
-
-    def chord_margin(chroma):
-        cn = chroma / np.maximum(np.linalg.norm(chroma, axis=-1, keepdims=True), 1e-10)
-        sims = np.sort(cn @ CHORD_MATRIX.T, axis=-1)
-        return sims[..., -1] - sims[..., -2]
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2506,6 +2853,7 @@ def main() -> int:
         latency = run_cdn_latency(card, dev, Path(tmp), corpus, info.seconds)
     accuracy = run_accuracy(card, dev)                                  # phase 35
     stream = run_stream_phase(card, dev)                                # phase 36
+    music = run_music_analysis(card, dev)                               # phase 37
 
     for mod in ("jax", "sonido_sonar_tpu"):
         if mod in sys.modules:
@@ -2576,7 +2924,7 @@ def main() -> int:
     print(json.dumps({"comparator": comparator}), flush=True)
     print(json.dumps({"extractor_classes": classes}), flush=True)
     for key, value in (("ingest", ingest), ("cdn_latency", latency), ("accuracy", accuracy),
-                       ("stream", stream)):
+                       ("stream", stream), ("music_analysis", music)):
         print(json.dumps({key: value}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""YIN pitch detection (counterpart of the YIN part of
-`sonido_sonar_tpu/ops/pitch.py`). These functions are the plain version
-of the K2 kernel (`ops/hopper_yin.py`).
+"""Pitch detection (counterpart of `sonido_sonar_tpu/ops/pitch.py`): YIN,
+whose functions are the plain version of the K2 kernel
+(`ops/hopper_yin.py`), the autocorrelation pitch and the median filter.
 
 Reference parity: algorithms/tonal/pitch_detection.go — YIN (:349-421):
 difference function d(tau) = sum_{j<H} (x[j]-x[j+tau])^2 with H = W/2;
@@ -191,3 +191,49 @@ def detect_pitch_track(
     (extractors/speech.go:468-469, reference quirk #8)."""
     p = params or PitchParams(sample_rate=sample_rate, window_size=frame_size)
     return yin_pitch_from_signal(pcm, frame_size, hop_size, p)
+
+
+def acf_pitch(
+    frames: torch.Tensor, params: PitchParams = PitchParams()
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Autocorrelation pitch: normalized ACF peak within the lag range
+    implied by [min_freq, max_freq] (pitch_detection.go:423-...).
+    Returns (pitch_hz, confidence), 0 where the peak is at most 0.3."""
+    w = frames.shape[-1]
+    x = frames.to(torch.float32)
+    x = x - torch.mean(x, dim=-1, keepdim=True)
+    n_fft = 1
+    while n_fft < 2 * w:
+        n_fft <<= 1
+    f = torch.fft.rfft(x, n=n_fft, dim=-1)
+    ac = torch.fft.irfft(f * torch.conj(f), n=n_fft, dim=-1)[..., :w]
+    nac = ac / torch.clamp_min(ac[..., :1], _EPS)
+
+    min_lag = max(int(params.sample_rate / params.max_freq), 1)
+    max_lag = min(int(params.sample_rate / params.min_freq) + 1, w - 1)
+    if min_lag >= max_lag:
+        z = torch.zeros(frames.shape[:-1], dtype=torch.float32, device=frames.device)
+        return z, z
+    best = torch.argmax(nac[..., min_lag:max_lag], dim=-1) + min_lag
+    peak = torch.gather(nac, -1, best[..., None])[..., 0]
+    lag = best.to(torch.float32)
+    pitch = torch.full_like(lag, float(params.sample_rate)) / lag  # a true float32 division
+    ok = peak > 0.3  # AutocorrThreshold (pitch_detection.go:168)
+    return torch.where(ok, pitch, 0.0), torch.where(ok, peak, 0.0)
+
+
+def median_filter_pitch(pitch: torch.Tensor, width: int = 5) -> torch.Tensor:
+    """Median smoothing of a pitch track over its last axis
+    (pitch_detection.go:767+): edge padding (clamped indices), the mean
+    of the two middle values on an even width, and NaN in a window gives
+    NaN, as `jnp.median` does (`correct_octave_errors` relies on it)."""
+    t = pitch.shape[-1]
+    pad = width // 2
+    idx = torch.arange(t, device=pitch.device)[:, None] + torch.arange(width, device=pitch.device)[None, :]
+    windows = pitch[..., torch.clamp(idx - pad, 0, t - 1)]  # [..., T, width]
+    srt = torch.sort(windows, dim=-1).values
+    if width % 2:
+        med = srt[..., width // 2]
+    else:
+        med = 0.5 * srt[..., width // 2 - 1] + 0.5 * srt[..., width // 2]
+    return torch.where(torch.isnan(windows).any(dim=-1), float("nan"), med)

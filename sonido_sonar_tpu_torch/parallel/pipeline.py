@@ -14,7 +14,7 @@ Counterpart of `sonido_sonar_tpu/parallel/pipeline.py`:
   speech extractor's whole payload (K1, K2, and K2 with period amplitude
   in the voice-quality chain).
 - `batched_music_extractor_features`: the music extractor's payload (K1
-  twice, K4 three times).
+  twice, K4 three times), with the optional CQT and HPCP chromas.
 - The alignment half: `batched_pair_alignment`, `batched_pair_dtw` (the
   banded DTW fill and backtrack kernels), `batched_refine_offsets`,
   `batched_phat_candidates` and `batched_phat_global` (GCC-PHAT, plain
@@ -38,7 +38,12 @@ import torch
 from sonido_sonar_tpu_torch.config.config import WindowType
 from sonido_sonar_tpu_torch.ops import spectral as S
 from sonido_sonar_tpu_torch.ops import temporal as T
-from sonido_sonar_tpu_torch.ops.chroma import chroma_from_magnitude, key_correlations
+from sonido_sonar_tpu_torch.ops.chroma import (
+    chroma_cqt,
+    chroma_from_magnitude,
+    hpcp_from_magnitude,
+    key_correlations,
+)
 from sonido_sonar_tpu_torch.ops.filters import dc_removal, pre_emphasis_for_content
 from sonido_sonar_tpu_torch.ops.framing import num_frames
 from sonido_sonar_tpu_torch.ops.hopper_stft import FEAT_LANES, stft_magnitude_hopper
@@ -229,12 +234,10 @@ def batched_music_extractor_features(
     bundle + 6-band contrast, ZCR of the preprocessed signal, MFCC
     13/26/lifter 22, chroma + key correlations + chord match, flux onsets
     (0.3, 50 ms), -40 dB silence, interval-histogram tempo, energy, and
-    per-frame pitch / HNR / inharmonicity over the contiguous frame split."""
-    if enable_cqt or enable_hpcp:
-        raise NotImplementedError(
-            "batched_music_extractor_features: CQT and HPCP chromas are not ported "
-            "yet (ROADMAP queue 1, item 9: ops/chroma.py chroma_cqt, hpcp_from_magnitude)"
-        )
+    per-frame pitch / HNR / inharmonicity over the contiguous frame split.
+    `enable_cqt` adds "chroma_cqt" [B, T', 12] (the CQT chroma of the raw
+    PCM, hop 512) and `enable_hpcp` adds "hpcp" [B, T, 12] (from K1's
+    magnitudes), as JAX `pipeline.py:455-458`; both are plain PyTorch."""
     x = as_float32(pcm, device).contiguous()
     require_fp32_matmuls(x, "batched_music_extractor_features")
     pre = pre_emphasis_for_content(dc_removal(x), "music")
@@ -309,6 +312,12 @@ def batched_music_extractor_features(
         (pitch > 0) & (conf > 0.5), 1.0 - torch.clamp(voicing, 0.0, 1.0), 0.0
     )
     out["tonal_centroid"] = out["spectral_centroid"][..., :t] * voicing
+
+    # the optional CQT and HPCP chromas (beyond the per-signal payload)
+    if enable_cqt:
+        out["chroma_cqt"] = chroma_cqt(x, sample_rate)
+    if enable_hpcp:
+        out["hpcp"] = hpcp_from_magnitude(mag, sample_rate, window_size)
     return out
 
 

@@ -82,13 +82,38 @@ def get_global_metrics() -> Metrics:
     return _global
 
 
+# profiler_trace on a card: the one-element kernels of its warm-up step,
+# and the idle seconds it leaves between the recorded step's start and
+# the block, and between the block and the step's end
+WARMUP_KERNELS = 1024
+TRACE_MARGIN_S = 0.1
+
+
 @contextlib.contextmanager
 def profiler_trace(log_dir: str) -> Iterator[None]:
     """torch.profiler trace context: the host's operators and, where a
     card is present, its kernels, written as a Chrome trace
-    (`<host>_<pid>.<ns>.pt.trace.json`) into `log_dir` on exit. On a card
-    the device is synchronized before the trace starts and before it
-    stops, so the trace holds the block's device work, all of it."""
+    (`<host>_<pid>.<ns>.pt.trace.json`) into `log_dir` on exit.
+
+    The session runs under a `torch.profiler.schedule` of one warm-up
+    step, whose records the schedule drops, and one recorded step that
+    holds the block. On a card the warm-up step launches WARMUP_KERNELS
+    one-element kernels and synchronizes, and the recorded step leaves
+    the card idle for TRACE_MARGIN_S seconds before and after the block.
+    On an H100, a trace taken late in a long process (minutes of device
+    work) lost kernel records at its start in two ways, both while every
+    launch call was kept. (1) The session's first ~20-25 kernel records
+    went missing (22-29 of one main-path step's 211, K1's among them),
+    whatever idle time came before them; kernels in a warm-up step take
+    that loss. (2) The device records' clock was offset from the host's
+    by up to ~5 ms (a kernel stamped before its own launch call), so a
+    kernel that ran within that offset of the recorded step's start fell
+    outside it; the idle margin, ~20x the largest offset seen, keeps the
+    block clear of that. Why either happens (in kineto or CUPTI) is not
+    known, and a larger offset would still lose records: `chip_smoke.py`
+    phase 36 traces a step several times in its long process, and once
+    in a fresh one, and holds each trace's kernel records to its own
+    launch calls."""
     cuda = torch.cuda.is_available()
     activities = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
@@ -97,10 +122,21 @@ def profiler_trace(log_dir: str) -> Iterator[None]:
     os.makedirs(log_dir, exist_ok=True)
     with torch.profiler.profile(
         activities=activities,
+        schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1),
         on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
-    ):
+    ) as prof:
+        if cuda:
+            buf = torch.zeros(1, device="cuda")
+            for _ in range(WARMUP_KERNELS):
+                buf.add_(1.0)
+            torch.cuda.synchronize()
+        prof.step()
+        if cuda:
+            time.sleep(TRACE_MARGIN_S)
         try:
             yield
         finally:
             if cuda:
                 torch.cuda.synchronize()
+                time.sleep(TRACE_MARGIN_S)
+            prof.step()

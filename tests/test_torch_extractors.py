@@ -140,11 +140,29 @@ def test_music_outputs_are_live(music_pair):
     assert got["chord_index"].dtype == np.int32
 
 
-def test_music_options_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.batched_music_extractor_features(torch.zeros(1, 4096), enable_cqt=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.batched_music_extractor_features(torch.zeros(1, 4096), enable_hpcp=True)
+def test_music_options_not_ported_raise(music):
+    """Once the options raised here; now the options-on music program
+    (CQT chroma of the raw PCM, HPCP from the magnitudes) is held to
+    JAX's, every key by check_extracted: the CQT chroma at the chroma's
+    1e-5, HPCP by utils/parity.HPCP_ATOL per frame with at most
+    HPCP_MISS_SHARE of the frames off (the two DFTs' magnitudes differ by
+    ~1.2e-6 of a frame's peak, which can swap near-equal HPCP peaks)."""
+    kw = dict(enable_cqt=True, enable_hpcp=True)
+    got = _t(tpipe.batched_music_extractor_features(torch.from_numpy(music[:2]), SR, **kw))
+    ref = _j(jpipe.batched_music_extractor_features(jnp.asarray(music[:2]), SR, **kw))
+    pre = np.asarray(jfilters.pre_emphasis_for_content(jfilters.dc_removal(jnp.asarray(music[:2])), "music"))
+    near = parity.near_zero_frames(pre, 1024, 256, 0.0, parity.DC_NEAR_ZERO)
+    chroma = ref["chroma"]
+    cn = chroma / np.maximum(np.linalg.norm(chroma, axis=-1, keepdims=True), 1e-10)
+    sims = np.sort(cn @ _CHORD_MATRIX.T, axis=-1)
+    errors, failures = parity.check_extracted(
+        got, ref, SR, 1024, near_zero=near, n_samples=N, chord_margin=sims[..., -1] - sims[..., -2])
+    assert not failures, (failures, errors)
+    assert got["chroma_cqt"].shape == (2, (N - 8192) // 512 + 1, 12)
+    assert got["hpcp"].shape == got["chroma"].shape
+    np.testing.assert_allclose(got["chroma_cqt"].sum(-1), 1.0, rtol=1e-5)
+    norms = np.linalg.norm(got["hpcp"], axis=-1)
+    np.testing.assert_allclose(norms[norms > 0], 1.0, rtol=1e-5)
 
 
 @pytest.mark.parametrize("content", ["news", "talk", "music", "unknown"])
