@@ -220,7 +220,7 @@ entry points, from WAV files in a temporary directory):
      torch.profiler session, without profiler_trace's warm-up step, in
      turns with those, is logged)
 
-Phase 37 runs last (the music-analysis ops):
+Phases 37 and 38 run last (the music-analysis ops, then the op surface):
  37. the music program with enable_cqt and enable_hpcp at B=128 x 30 s
      on phase 13's clips: K1 launched twice and K4 three times, the
      schema's shapes with chroma_cqt [128, 2568, 12] and hpcp [128,
@@ -237,12 +237,29 @@ Phase 37 runs last (the music-analysis ops):
      and spectral_snr, analyze_inharmonicity and analyze_vibrato over the
      full-width magnitudes and tracks, HarmonicTracking on one clip; each
      tonal op timed as the median of 3 calls after a warm-up
+ 38. the op surface at B=128 x 30 s (run_op_surface): the normalizers
+     (quantile and robust over 169 M samples), resampling to 16 kHz by
+     all four interpolators, the block-scan filters, envelopes, energy
+     statistics, estimate_tempo_range (K1, K4), VAD and speech segments,
+     LPC residuals and LUFS over the PCM; complex-domain onsets (K4) over
+     a full stft's magnitude and phase, mel, Bark and custom-band
+     contrast over K1's magnitudes; k-means (K = 8) over the main path's
+     661k MFCC frames, a JS distance matrix over one clip's chroma, kNN
+     over phase 29's corpus (the 16 lowest of the 65 tied copies), the
+     moments, entropy and percentile analyses, the chroma statistics and
+     Tonnetz and tension ops over the batch's chroma; all six chroma
+     sequence similarities (DTW banded) on a chord clip against its
+     chroma transposed by 5 (OTI must find 5). Each op timed as the
+     median of 3 calls after a warm-up and held to the same op on the
+     CPU over 2 clips (utils/parity OPS_*, MOMENTS_RTOL, BLOCK_SCAN_*,
+     SW_ATOL_SCALE); launches K1 and K4 only; peak device memory
 
 A {"comparator": {...}} line (the card, phases 28-29's gates, launch
 counts and times), an {"extractor_classes": {...}} line (phases
 30-32's launch counts, step times, peak memory and the streamer's
 numbers) and the {"ingest": ...}, {"cdn_latency": ...}, {"accuracy": ...},
-{"stream": ...} and {"music_analysis": ...} lines of phases 33-37 (each
+{"stream": ...}, {"music_analysis": ...} and {"op_surface": ...} lines of
+phases 33-38 (each
 path's kernel launches, counted from 0 just before it) come before the
 kernels line. The second-to-last line
 is {"kernels": [...]}: for each kernel its
@@ -1465,14 +1482,8 @@ def run_comparator(card: str, dev: torch.device, batch, fps, gen_step, kernels: 
     # phase 29: a corpus of 262,144 packed rows (bench.py:585-595), 64 of
     # them copies of row `src`, so a search for that row ties
     torch.cuda.reset_peak_memory_stats()
-    rng = np.random.default_rng(SEED + 29)
     D = DC.layout_size(13)
-    corpus = rng.standard_normal((CORPUS_ROWS, D)).astype(np.float32)
-    corpus[:, :6] = 1.0  # presence flags
-    corpus[:, 29] = np.abs(corpus[:, 29])
-    src = 5000
-    dups = np.sort(rng.choice(np.delete(np.arange(CORPUS_ROWS), src), CORPUS_DUPLICATES, replace=False))
-    corpus[dups] = corpus[src]
+    corpus, src, dups, rng = corpus_rows(D)
     X = torch.from_numpy(corpus).to(dev)
     X_cpu = torch.from_numpy(corpus)
     w = np.array([0.35, 0.25, 0.10, 0.20, 0.10, 0.10], np.float32)
@@ -2402,6 +2413,262 @@ def run_music_analysis(card: str, dev: torch.device) -> dict:
     return res
 
 
+SURFACE_ITERS = 3         # phase 38: timed calls of each op after its warm-up
+SURFACE_CPU_ROWS = 2      # phase 38: clips each op is held to the CPU on
+SURFACE_SHIFT = 5         # phase 38: semitones the chord clip's chroma is transposed
+KNN_K = 16
+CUSTOM_BANDS = (200.0, 500.0, 1000.0, 2000.0, 4000.0, 8000.0, 16000.0)
+
+
+def corpus_rows(d: int) -> tuple:
+    """Phase 29's corpus: CORPUS_ROWS rows of width d from numpy seeded
+    with SEED + 29, CORPUS_DUPLICATES of them copies of row `src`.
+    Returns (rows, src, the copies' indices, the generator)."""
+    rng = np.random.default_rng(SEED + 29)
+    corpus = rng.standard_normal((CORPUS_ROWS, d)).astype(np.float32)
+    corpus[:, :6] = 1.0  # presence flags
+    corpus[:, 29] = np.abs(corpus[:, 29])
+    src = 5000
+    dups = np.sort(rng.choice(np.delete(np.arange(CORPUS_ROWS), src), CORPUS_DUPLICATES, replace=False))
+    corpus[dups] = corpus[src]
+    return corpus, src, dups, rng
+
+
+def kmeans_vs_cpu(x: torch.Tensor, k: int, dev: torch.device) -> dict:
+    """Phase 38's k-means hold, card against CPU on the same frames and
+    the same kmeans++ seeds: the assignment to the seeds equal but where
+    a frame's two nearest seeds are within KMEANS_TIE_SCALE of its
+    distance identity's scale; after the fit's 50 steps, where a boundary
+    frame that flips moves its centroids, at most KMEANS_LABEL_MISS_SHARE
+    of the labels differ and the inertia within KMEANS_INERTIA_RTOL."""
+    from sonido_sonar_tpu_torch.ops.stats import clustering
+    from sonido_sonar_tpu_torch.ops.stats.dtw import pairwise_sq_euclidean
+    from sonido_sonar_tpu_torch.utils import parity
+
+    x_cpu = x.cpu()
+    init = torch.from_numpy(clustering._kmeanspp_init(x_cpu.numpy(), k, np.random.default_rng(SEED)))
+    first = clustering._lloyd(x, init.to(dev), 0)[0].cpu()
+    d2 = pairwise_sq_euclidean(x_cpu, init)
+    two = torch.topk(d2, 2, dim=-1, largest=False).values
+    scale = torch.sum(x_cpu * x_cpu, -1) + torch.amax(torch.sum(init * init, -1))
+    tied = (two[:, 1] - two[:, 0]) <= parity.KMEANS_TIE_SCALE * scale
+    ref_first = torch.argmin(d2, dim=-1)
+    out = {"first_step_differ": int((first != ref_first).sum()), "first_step_near_ties": int(tied.sum())}
+    if bool(((first != ref_first) & ~tied).any()):
+        raise AssertionError(f"k-means: the assignment to the seeds differs away from ties, card vs CPU: {out}")
+    fit_card = clustering.Clustering(num_clusters=k, seed=SEED, device=dev).fit(x)
+    fit_cpu = clustering.Clustering(num_clusters=k, seed=SEED, device="cpu").fit(x_cpu)
+    out["label_miss_share"] = float(np.mean(fit_card.labels != fit_cpu.labels))
+    out["inertia_rel"] = abs(fit_card.inertia - fit_cpu.inertia) / fit_cpu.inertia
+    out["centroid_max_abs"] = float(np.abs(fit_card.centroids - fit_cpu.centroids).max())
+    log(f"[k-means K={k} on {x.shape[0]} frames, card vs CPU] {out}")
+    if out["label_miss_share"] > parity.KMEANS_LABEL_MISS_SHARE or out["inertia_rel"] > parity.KMEANS_INERTIA_RTOL:
+        raise AssertionError(f"k-means: card and CPU fits differ: {out}")
+    return out
+
+
+def run_op_surface(card: str, dev: torch.device) -> dict:
+    """Phase 38: the op surface (ops/common, fft, chroma_analysis,
+    stats/{distance,clustering,entropy,moments,percentiles} and the names
+    of filters, temporal, spectral, speech, mel and mfcc) at B=128 x 30 s
+    on the card: each op timed by warm_median_ms and held to the same op
+    on the CPU over SURFACE_CPU_ROWS clips (utils/parity OPS_*,
+    MOMENTS_RTOL, BLOCK_SCAN_*, SW_ATOL_SCALE), the launch counts of the
+    ops' run (K1 and K4 launched, no other kernel), the peak device
+    memory, and all six chroma sequence similarities on a chord clip and
+    its transposition (OTI must find the shift). Returns the
+    {"op_surface": ...} numbers."""
+    from sonido_sonar_tpu_torch.fingerprint import device_compare as DC
+    from sonido_sonar_tpu_torch.ops import chroma_analysis as CA
+    from sonido_sonar_tpu_torch.ops import common, filters, mel, mfcc, spectral, speech, temporal
+    from sonido_sonar_tpu_torch.ops.framing import frame_signal
+    from sonido_sonar_tpu_torch.ops.hopper_stft import stft_magnitude_hopper
+    from sonido_sonar_tpu_torch.ops.stats import clustering, distance, entropy, moments, percentiles
+    from sonido_sonar_tpu_torch.ops.stft import stft
+    from sonido_sonar_tpu_torch.parallel.pipeline import batched_fingerprint_features
+    from sonido_sonar_tpu_torch.utils import parity
+
+    t0 = time.perf_counter()
+    rows = SURFACE_CPU_ROWS
+    n_full = FULL_SECONDS * SR
+    pcm = parity.synth_pcm(FULL_B, n_full, SEED + 38, SR, dev)
+    pcm_cpu = pcm[:rows].cpu()
+    feats = batched_fingerprint_features(pcm, SR, WINDOW, HOP)
+    mfcc_b, chroma_b = feats["mfcc"], feats["chroma"]
+    del feats
+    mag = stft_magnitude_hopper(pcm, WINDOW, HOP)[0]
+    # the chord clip whose chroma phase 38's sequence similarities compare
+    q = batched_fingerprint_features(chord_clips(1, FULL_SECONDS).to(dev), SR, WINDOW, HOP)["chroma"][0]
+    res: dict = {"batch": FULL_B, "clip_s": FULL_SECONDS, "ms": {}, "max_abs_err": {}}
+
+    def hold(name, fn, cpu_fn, rtol=parity.OPS_RTOL, atol=parity.OPS_ATOL, rows_of=lambda o: o[:rows]):
+        """Time fn() on the card; hold its leading rows to cpu_fn() (tensors,
+        tuples or dicts of them) within rtol/atol."""
+        out, res["ms"][name] = warm_median_ms(fn, SURFACE_ITERS)
+        ref = cpu_fn()
+        got = out
+        if isinstance(ref, dict):
+            pairs = [(f"{name}.{k}", rows_of(got[k]), ref[k]) for k in ref]
+        elif isinstance(ref, tuple):
+            pairs = [(f"{name}[{i}]", rows_of(g), r) for i, (g, r) in enumerate(zip(got, ref, strict=True))]
+        else:
+            pairs = [(name, rows_of(got), ref)]
+        worst = 0.0
+        for label, g, r in pairs:
+            errors = require(parity_close(label, np32(g), r.numpy() if isinstance(r, torch.Tensor) else r,
+                                          rtol, atol), f"{label}, card vs CPU")
+            worst = max(worst, errors[label])
+        res["max_abs_err"][name] = worst
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+
+    # -- PCM [128, 1,323,000]: normalizers, resampling, filters, envelopes, tempo
+    for method in ("zscore", "minmax", "energy", "peak", "rms", "quantile", "robust", "adaptive"):
+        hold(f"normalize_{method}", lambda: common.normalize(pcm, method),
+             lambda: common.normalize(pcm_cpu, method), atol=1e-5)
+    hold("normalize_lufs", lambda: common.normalize_lufs(pcm, -23.0, SR),
+         lambda: common.normalize_lufs(pcm_cpu, -23.0, SR), atol=1e-5)
+    for method in ("linear", "cubic", "hermite", "lanczos"):
+        hold(f"resample_{method}", lambda: common.resample_signal(pcm, SR, 16000, method),
+             lambda: common.resample_signal(pcm_cpu, SR, 16000, method), atol=1e-5)
+    scan_atol = f"scale:{parity.BLOCK_SCAN_F64_ATOL_SCALE}"
+    hold("bandpass_q5", lambda: filters.bandpass(pcm, 1000.0, 5.0, SR),
+         lambda: filters.bandpass(pcm_cpu, 1000.0, 5.0, SR), rtol=0.0, atol=scan_atol)
+    hold("adaptive_pre_emphasis", lambda: filters.adaptive_pre_emphasis(pcm),
+         lambda: filters.adaptive_pre_emphasis(pcm_cpu), rtol=0.0, atol=scan_atol)
+    hold("hilbert_envelope", lambda: temporal.hilbert_envelope(pcm),
+         lambda: temporal.hilbert_envelope(pcm_cpu), rtol=0.0, atol="scale:1e-5")
+    hold("peak_envelope", lambda: temporal.peak_envelope(pcm), lambda: temporal.peak_envelope(pcm_cpu), 0.0, 0.0)
+    hold("crest_factor", lambda: temporal.crest_factor(pcm), lambda: temporal.crest_factor(pcm_cpu))
+    hold("energy_statistics", lambda: temporal.energy_statistics(pcm, WINDOW, HOP),
+         lambda: temporal.energy_statistics(pcm_cpu, WINDOW, HOP), atol=1e-5)
+    tempo = hold("estimate_tempo_range", lambda: temporal.estimate_tempo_range(pcm, SR),
+                 lambda: temporal.estimate_tempo_range(pcm_cpu, SR), atol=parity.OPS_RTOL * 240.0)
+    frames = frame_signal(pcm, WINDOW, 512)
+    hold("detect_voice_activity", lambda: spectral.detect_voice_activity(frames),
+         lambda: spectral.detect_voice_activity(frame_signal(pcm_cpu, WINDOW, 512)), 0.0, 0.0)
+    segs, res["ms"]["detect_speech_segments_one_clip"] = warm_median_ms(
+        lambda: spectral.detect_speech_segments(pcm[3], WINDOW, 512, min_segment_samples=SR // 10),
+        SURFACE_ITERS)
+    ref_segs = spectral.detect_speech_segments(pcm[3].cpu(), WINDOW, 512, min_segment_samples=SR // 10)
+    if not all(np.array_equal(g, r) for g, r in zip(segs, ref_segs, strict=True)):
+        raise AssertionError("detect_speech_segments: card and CPU differ")
+    lpc = speech.lpc_analyze(pcm[0, :8192], SR, order=16).coefficients
+    hold("lpc_residual", lambda: speech.lpc_residual(pcm, lpc),
+         lambda: speech.lpc_residual(pcm_cpu, lpc.cpu()), atol=1e-5)
+
+    # -- spectra: K1's [128, 5164, 513] and a full stft for phase
+    spec = stft(pcm, WINDOW, HOP, sample_rate=SR, return_phase=True)
+    onsets = hold("detect_onsets_complex",
+                  lambda: temporal.detect_onsets_complex(spec.magnitude, spec.phase, HOP, SR),
+                  lambda: temporal.detect_onsets_complex(spec.magnitude[:rows].cpu(), spec.phase[:rows].cpu(), HOP, SR),
+                  0.0, 0.0)
+    del spec
+    mag_cpu = mag[:rows].cpu()
+    hold("mel_spectrum", lambda: mfcc.mel_spectrum(mag, SR, WINDOW), lambda: mfcc.mel_spectrum(mag_cpu, SR, WINDOW),
+         atol=1e-5)
+    bark = mel.bark_filterbank(24, WINDOW, SR)
+    hold("bark_apply_filterbank", lambda: mel.apply_filterbank(mag * mag, bark),
+         lambda: mel.apply_filterbank(mag_cpu * mag_cpu, bark), atol=1e-5)
+    hold("spectral_contrast_custom_bands", lambda: spectral.spectral_contrast_custom_bands(mag, SR, CUSTOM_BANDS),
+         lambda: spectral.spectral_contrast_custom_bands(mag_cpu, SR, CUSTOM_BANDS), atol=1e-4)
+
+    # -- features: the main path's MFCC and chroma of the batch
+    frames_mfcc = mfcc_b.reshape(-1, mfcc_b.shape[-1])
+    km = clustering.Clustering(num_clusters=8, seed=SEED, device=dev)
+    fit, res["ms"]["kmeans_k8"] = warm_median_ms(lambda: km.fit(frames_mfcc), SURFACE_ITERS)
+    small = frames_mfcc[: rows * mfcc_b.shape[1]]
+    res["kmeans_vs_cpu"] = kmeans_vs_cpu(small, 8, dev)
+    res["max_abs_err"]["kmeans_k8"] = res["kmeans_vs_cpu"]["centroid_max_abs"]
+    res["kmeans"] = {"frames": int(frames_mfcc.shape[0]), "inertia": fit.inertia,
+                     "silhouette": fit.silhouette, "cluster_sizes": np.bincount(fit.labels, minlength=8).tolist()}
+    c0 = chroma_b[0]
+    hold("distance_matrix_js", lambda: distance.distance_matrix(c0, c0, "js"),
+         lambda: distance.distance_matrix(c0[:500].cpu(), c0.cpu(), "js"), rows_of=lambda o: o[:500])
+    corpus, src, dups, _ = corpus_rows(DC.layout_size(13))
+    corpus_dev = torch.from_numpy(corpus).to(dev)
+    (idx, dist) = hold("knn_corpus", lambda: distance.knn(corpus_dev[src], corpus_dev, KNN_K, "manhattan"),
+                       lambda: distance.knn(torch.from_numpy(corpus[src]), torch.from_numpy(corpus), KNN_K,
+                                            "manhattan"), 0.0, 0.0, rows_of=lambda o: o)
+    want = sorted([src, *dups.tolist()])[:KNN_K]
+    if idx.tolist() != want or float(dist.abs().max()) != 0.0:
+        raise AssertionError(f"knn: {idx.tolist()} at {dist.tolist()}, want the tied copies {want}")
+    del corpus_dev
+    series = mag[0].sum(-1)                                  # clip 0's spectral energy series
+    for name, fn in (("moments_analyze", moments.analyze), ("entropy_analyze", entropy.analyze)):
+        got, res["ms"][name] = warm_median_ms(lambda: fn(series), SURFACE_ITERS)
+        ref = fn(series.cpu())
+        atol = parity.moments_analyze_atol(series.cpu().numpy()) if name == "moments_analyze" else {}
+        res["max_abs_err"][name] = max(require(parity_close(
+            f"{name}.{k}", got[k], ref[k], parity.MOMENTS_RTOL, atol.get(k, parity.OPS_ATOL)),
+            f"{name}.{k}, card vs CPU")[f"{name}.{k}"] for k in ref)
+    res["percentiles"] = percentiles.analyze(series.cpu().numpy())
+    cent = spectral.spectral_centroid(mag, SR)
+    cent_cpu = cent[:rows].cpu()
+    row_atol = [parity.moments_analyze_atol(row) for row in cent_cpu.numpy()]
+    for name in ("skewness", "kurtosis", "pearson_skewness", "bowley_skewness"):
+        hold(f"moments_{name}", lambda: getattr(moments, name)(cent), lambda: getattr(moments, name)(cent_cpu),
+             rtol=parity.MOMENTS_RTOL, atol=max(a[name] for a in row_atol))
+    hold("histogram_shannon", lambda: entropy.shannon_entropy(entropy.histogram_probs(cent, 64)),
+         lambda: entropy.shannon_entropy(entropy.histogram_probs(cent_cpu, 64)))
+    chroma_cpu = chroma_b[:rows].cpu()
+    hold("chroma_stats", lambda: CA.chroma_stats(chroma_b), lambda: CA.chroma_stats(chroma_cpu), atol=1e-5)
+    for name in ("tonal_centroid", "tonnetz_point", "harmonic_tension", "consonance"):
+        hold(name, lambda: getattr(CA, name)(chroma_b), lambda: getattr(CA, name)(chroma_cpu), atol=1e-5)
+    hold("voice_leading_distance", lambda: CA.voice_leading_distance(chroma_b[:, 1:], chroma_b[:, :-1]),
+         lambda: CA.voice_leading_distance(chroma_cpu[:, 1:], chroma_cpu[:, :-1]))
+    hold("smooth_chroma", lambda: CA.smooth_chroma(chroma_b[0], 8), lambda: CA.smooth_chroma(chroma_cpu[0], 8),
+         rows_of=lambda o: o)
+    hold("tonnetz_trajectory", lambda: CA.tonnetz_trajectory(chroma_b[0]), lambda: CA.tonnetz_trajectory(chroma_cpu[0]),
+         atol=1e-5, rows_of=lambda o: o)
+    del mag, mag_cpu, frames, cent
+
+    # -- chroma sequences: a chord clip and its chroma transposed
+    r = torch.roll(q, SURFACE_SHIFT, dims=-1)
+    res["sequences"] = {}
+    for method in ("direct", "binary", "smith_waterman", "dtw", "qmax", "oti"):
+        kw = dict(dtw_band_radius=64) if method == "dtw" else {}
+        got, ms = warm_median_ms(lambda: CA.ChromaSequenceSimilarity(method, device=dev, **kw).compute(q, r),
+                                 SURFACE_ITERS)
+        ref = CA.ChromaSequenceSimilarity(method, device="cpu", **kw).compute(q.cpu(), r.cpu())
+        if method == "smith_waterman":
+            atol, rtol = parity.SW_ATOL_SCALE * float(np.abs(ref.similarity_matrix).max()), 0.0
+        else:
+            atol, rtol = parity.OPS_ATOL, parity.OPS_RTOL
+        err = require(parity_close(f"{method} matrix", got.similarity_matrix, ref.similarity_matrix, rtol, atol),
+                      f"ChromaSequenceSimilarity({method!r}) [{q.shape[0]} x {r.shape[0]}], card vs CPU")
+        score_tol = parity.SW_ATOL_SCALE if method == "smith_waterman" else parity.OPS_RTOL
+        if abs(got.overall_similarity - ref.overall_similarity) > score_tol * abs(ref.overall_similarity) + 1e-7 \
+                or got.best_transposition != ref.best_transposition:
+            raise AssertionError(f"{method}: {got.overall_similarity} shift {got.best_transposition} on the card, "
+                                 f"{ref.overall_similarity} shift {ref.best_transposition} on the CPU")
+        res["ms"][f"sequence_{method}"] = ms
+        res["max_abs_err"][f"sequence_{method}"] = err[f"{method} matrix"]
+        res["sequences"][method] = {"overall": got.overall_similarity, "shift": got.best_transposition}
+    if res["sequences"]["oti"]["shift"] != SURFACE_SHIFT:
+        raise AssertionError(f"OTI found shift {res['sequences']['oti']['shift']}, the clip was transposed "
+                             f"by {SURFACE_SHIFT}")
+
+    torch.cuda.synchronize()
+    res["launches"] = {k: v for k, v in read_launches().items() if v}
+    if not res["launches"].get("K1") or not res["launches"].get("K4") or set(res["launches"]) != {"K1", "K4"}:
+        raise AssertionError(f"phase 38: the op surface launched {res['launches']}, want K1 and K4 only")
+    res["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    res["tempo_bpm_rows_0_3"] = [round(float(v), 3) for v in tempo[0][:4]]
+    res["onset_counts_rows_0_3"] = [int(v) for v in onsets[1][:4]]
+    res["seconds"] = time.perf_counter() - t0
+    slow = sorted(res["ms"].items(), key=lambda kv: -kv[1])[:8]
+    log(f"[op surface B={FULL_B} x {FULL_SECONDS} s] {len(res['ms'])} ops held to the CPU on {rows} clips; "
+        f"launches {res['launches']}; peak device memory {res['peak_mib']:.0f} MiB; slowest (ms, median of "
+        f"{SURFACE_ITERS} after a warm-up) { {k: round(v, 2) for k, v in slow} }; OTI shift "
+        f"{res['sequences']['oti']['shift']}; phase {res['seconds']:.1f} s [{card}]")
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     card = card_line()                                        # phase 1
@@ -2854,6 +3121,7 @@ def main() -> int:
     accuracy = run_accuracy(card, dev)                                  # phase 35
     stream = run_stream_phase(card, dev)                                # phase 36
     music = run_music_analysis(card, dev)                               # phase 37
+    surface = run_op_surface(card, dev)                                 # phase 38
 
     for mod in ("jax", "sonido_sonar_tpu"):
         if mod in sys.modules:
@@ -2924,7 +3192,7 @@ def main() -> int:
     print(json.dumps({"comparator": comparator}), flush=True)
     print(json.dumps({"extractor_classes": classes}), flush=True)
     for key, value in (("ingest", ingest), ("cdn_latency", latency), ("accuracy", accuracy),
-                       ("stream", stream), ("music_analysis", music)):
+                       ("stream", stream), ("music_analysis", music), ("op_surface", surface)):
         print(json.dumps({key: value}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -28,6 +29,13 @@ def frame_signal(
             f"signal length {n} shorter than window {window_size}"
         )
     return signal.unfold(-1, window_size, hop_size)
+
+
+def frame_times(
+    t: int, hop_size: int, window_size: int, sample_rate: int
+) -> np.ndarray:
+    """Frame start times in seconds (host-side metadata)."""
+    return (np.arange(t) * hop_size) / float(sample_rate)
 
 
 def kernel_signal(

@@ -10,6 +10,7 @@ error past the parity budget), so on a CUDA device TF32 stays off.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 
@@ -88,3 +89,30 @@ def mfcc_from_mel(mel_spec: torch.Tensor, params: MFCCParams = MFCCParams()) -> 
             lifter_vector, (params.num_coefficients, params.lifter_coeff), dev
         )
     return coeffs
+
+
+def mel_spectrum(
+    magnitude: torch.Tensor,
+    sample_rate: int,
+    fft_size: int,
+    params: MFCCParams = MFCCParams(),
+) -> torch.Tensor:
+    """Mel power spectrum [..., M] (MFCCResult.MelSpectrum)."""
+    high = params.high_freq if params.high_freq > 0 else sample_rate / 2.0
+    fb = device_table(
+        mel_filterbank,
+        (params.num_mel_filters, fft_size, sample_rate, params.low_freq, high),
+        magnitude.device,
+    )
+    return torch.matmul(magnitude * magnitude, fb.T)
+
+
+def log_energy_c0(
+    magnitude: torch.Tensor,
+    sample_rate: int,
+    fft_size: int,
+    params: MFCCParams = MFCCParams(),
+) -> torch.Tensor:
+    """C0 before liftering = MFCCResult.LogEnergy (mfcc.go:152-156)."""
+    p = dataclasses.replace(params, use_liftering=False)
+    return mfcc(magnitude, sample_rate, fft_size, p)[..., 0]

@@ -303,3 +303,134 @@ def descriptors_from_feat(feat: torch.Tensor) -> dict:
     from sonido_sonar_tpu_torch.ops.hopper_stft import FEAT_LANES
 
     return {k: feat[..., idx] for k, idx in FEAT_LANES.items() if isinstance(idx, int)}
+
+
+def band_limited_flatness(
+    magnitude: torch.Tensor,
+    sample_rate: int,
+    low_hz: float,
+    high_hz: float,
+) -> torch.Tensor:
+    """Flatness over a static frequency band (spectral_flatness.go:95-135)."""
+    freqs = _freq_bins(magnitude.shape[-1], sample_rate)
+    lo = int(np.searchsorted(freqs, low_hz, side="left"))
+    hi = int(np.searchsorted(freqs, high_hz, side="right"))
+    hi = max(hi, lo + 1)
+    return spectral_flatness(magnitude[..., lo:hi])
+
+
+def speech_band_flatness(magnitude: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """300-3400 Hz speech band (spectral_flatness.go:138-150)."""
+    return band_limited_flatness(magnitude, sample_rate, 300.0, 3400.0)
+
+
+def spectral_contrast_custom_bands(
+    magnitude: torch.Tensor, sample_rate: int, band_freqs_hz: tuple
+) -> torch.Tensor:
+    """ComputeWithCustomBands (spectral_contrast.go:104-137): contrast
+    over caller-provided band edge frequencies, each band's power sorted
+    (K9 is not used here, as JAX uses no Pallas kernel here)."""
+    n_bins = magnitude.shape[-1]
+    nyquist = sample_rate / 2.0
+    edges = [
+        min(max(int(f * (n_bins - 1) / nyquist), 0), n_bins - 1)
+        for f in band_freqs_hz
+    ]
+    for i in range(1, len(edges)):
+        if edges[i] <= edges[i - 1]:
+            edges[i] = edges[i - 1] + 1
+    power = magnitude * magnitude
+    outs = []
+    for b in range(len(edges) - 1):
+        lo, hi = edges[b], min(edges[b + 1], n_bins)
+        if lo >= hi:
+            outs.append(magnitude.new_zeros(magnitude.shape[:-1]))
+            continue
+        width = hi - lo
+        k = max(int(0.2 * width), 1)
+        sorted_band = torch.sort(power[..., lo:hi], dim=-1).values
+        valley = torch.clamp_min(torch.mean(sorted_band[..., :k], dim=-1), _EPS)
+        peak = torch.mean(sorted_band[..., width - k:], dim=-1)
+        outs.append(torch.where(peak > 0, 10.0 * torch.log10(peak / valley), 0.0))
+    return torch.stack(outs, dim=-1)
+
+
+def zcr_normalized(frames: torch.Tensor) -> torch.Tensor:
+    """Crossings / (W-1), range [0,1] (zero_crossing_rate.go:57-76)."""
+    w = frames.shape[-1]
+    return zero_crossings(frames) / float(max(w - 1, 1))
+
+
+def zcr_with_threshold(
+    frames: torch.Tensor, sample_rate: int, threshold: float
+) -> torch.Tensor:
+    """Crossings/sec counting only crossings where both samples exceed
+    the amplitude threshold (zero_crossing_rate.go:126-143)."""
+    strong = (torch.abs(frames[..., 1:]) > threshold) & (torch.abs(frames[..., :-1]) > threshold)
+    nonneg = frames >= 0
+    changes = (nonneg[..., 1:] != nonneg[..., :-1]) & strong
+    counts = torch.sum(changes, dim=-1).to(torch.float32)
+    return per_second(counts, frames.shape[-1], sample_rate)
+
+
+# Voice activity (zero_crossing_rate.go:146-168)
+VAD_ENERGY_THRESHOLD = 0.001
+VAD_ZCR_LOW = 0.02
+VAD_ZCR_HIGH = 0.6
+
+
+def detect_voice_activity(
+    frames: torch.Tensor,
+    energy_threshold: float = VAD_ENERGY_THRESHOLD,
+    zcr_low: float = VAD_ZCR_LOW,
+    zcr_high: float = VAD_ZCR_HIGH,
+) -> torch.Tensor:
+    """Per-frame VAD (zero_crossing_rate.go:146-168): mean-square energy
+    above threshold and normalized ZCR within the speech band."""
+    energy = torch.mean(frames * frames, dim=-1)
+    zn = zcr_normalized(frames)
+    return (energy >= energy_threshold) & (zn >= zcr_low) & (zn <= zcr_high)
+
+
+def detect_speech_segments(
+    signal: torch.Tensor,
+    frame_size: int,
+    hop_size: int,
+    energy_threshold: float = VAD_ENERGY_THRESHOLD,
+    zcr_low: float = VAD_ZCR_LOW,
+    zcr_high: float = VAD_ZCR_HIGH,
+    min_segment_samples: int = 0,
+):
+    """Speech segments of a 1-D signal as (starts, ends) sample-index
+    arrays (zero_crossing_rate.go:170-224): the VAD on the signal's
+    device, the run-length extraction on the host."""
+    from sonido_sonar_tpu_torch.ops.framing import frame_signal
+
+    frames = frame_signal(signal, frame_size, hop_size)
+    voice = detect_voice_activity(frames, energy_threshold, zcr_low, zcr_high).cpu().numpy()
+    n = int(signal.shape[-1])
+    starts, ends = [], []
+    cur = -1
+    for i, v in enumerate(voice):
+        if v and cur == -1:
+            cur = i * hop_size
+        elif not v and cur != -1:
+            end = i * hop_size
+            if end - cur >= min_segment_samples:
+                starts.append(cur)
+                ends.append(end)
+            cur = -1
+    if cur != -1 and n - cur >= min_segment_samples:
+        starts.append(cur)
+        ends.append(n)
+    return np.asarray(starts), np.asarray(ends)
+
+
+def classify_frame_type(frames: torch.Tensor) -> torch.Tensor:
+    """Frame class codes (zero_crossing_rate.go:227-244):
+    0=silence (energy < 0.001), 1=voiced (zcr<0.1), 2=mixed (<0.4),
+    3=unvoiced (<0.7), 4=noise."""
+    energy = torch.mean(frames * frames, dim=-1)
+    zn = zcr_normalized(frames)
+    cls = torch.where(zn < 0.1, 1, torch.where(zn < 0.4, 2, torch.where(zn < 0.7, 3, 4)))
+    return torch.where(energy < 0.001, 0, cls).to(torch.int32)

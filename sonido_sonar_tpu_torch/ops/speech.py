@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -84,6 +84,23 @@ def lpc_analyze(signal: torch.Tensor, sample_rate: int, order: int = 0) -> LPCRe
     p = order or lpc_order_for(sample_rate)
     a, k, gain, e = levinson_durbin(autocorrelation_r(signal, p), p)
     return LPCResult(a, k, gain, e, p)
+
+
+def lpc_is_stable(reflection: torch.Tensor) -> torch.Tensor:
+    """Filter stability check (lpc.go checkStability): all reflection
+    coefficients strictly inside the unit circle."""
+    return torch.all(torch.abs(reflection) < 1.0, dim=-1)
+
+
+def lpc_residual(signal: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """Prediction error e[n] = x[n] - sum_{i>=1} a_i x[n-i] (the
+    whitening filter applied to the signal). Unbatched coeffs [p+1]."""
+    x = signal.to(torch.float32)
+    out = x
+    for i in range(1, coeffs.shape[-1]):
+        shifted = torch.nn.functional.pad(x[..., : x.shape[-1] - i], (i, 0))
+        out = out - coeffs[i] * shifted
+    return out
 
 
 def lpc_spectral_envelope(coeffs: torch.Tensor, nfft: int = 1024) -> torch.Tensor:
@@ -413,3 +430,25 @@ def analyze_speech(signal: torch.Tensor, sample_rate: int) -> SpeechAnalysisResu
         quality_score=vq.overall_quality,
         intelligibility=torch.clamp_max(intel, 1.0),
     )
+
+
+def estimate_gender(formants: FormantResult) -> Tuple[str, float]:
+    """EstimateGender (speech_analysis.go:272-296). Host-side helper."""
+    if int(formants.count) < 2:
+        return "unknown", 0.0
+    f1 = float(formants.frequencies[0])
+    f2 = float(formants.frequencies[1])
+    if f1 < 450 and f2 < 2200:
+        return "male", 0.7
+    if f1 > 500 and f2 > 2400:
+        return "female", 0.7
+    return "unknown", 0.3
+
+
+def estimate_age(vq: VoiceQualityResult) -> Tuple[str, float]:
+    """EstimateAge (speech_analysis.go:299-314). Host-side helper."""
+    if float(vq.jitter) > 3.0 or float(vq.shimmer) > 8.0:
+        return "elderly", 0.4
+    if float(vq.mean_f0) > 200 and float(vq.f0_range) > 100:
+        return "young", 0.4
+    return "adult", 0.3

@@ -3,8 +3,9 @@
 Counterpart of `sonido_sonar_tpu/ops/stats/`: cross-correlation, DTW
 (dense and banded; the banded fill and backtrack are CUDA kernels,
 `hopper_dtw.py` and `hopper_backtrack.py`), the hybrid alignment analyzer
-and its batched counterpart. Distance functions, clustering, entropy,
-moments and percentiles are not ported yet (ROADMAP).
+and its batched counterpart; distance functions (`distance.py`),
+clustering (`clustering.py`), entropy (`entropy.py`), moments
+(`moments.py`) and percentiles (`percentiles.py`).
 """
 
 from sonido_sonar_tpu_torch.ops.stats.correlation import (  # noqa: F401

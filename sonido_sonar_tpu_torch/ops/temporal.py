@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -420,3 +421,217 @@ def estimate_tempo(
 
     pos, valid = combine_onset_positions(p1, v1, p2, v2, int(min_interval * sample_rate))
     return tempo_from_onset_positions(pos, valid, sample_rate)
+
+
+# ---------------------------------------------------------------------
+# Peaks, envelopes, tempo by autocorrelation, attack/decay, statistics
+# ---------------------------------------------------------------------
+
+def peak_energy(energies: torch.Tensor, threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Local-max peaks above threshold: (peak mask [..., T], count [...])
+    (energy.go:228-247). Endpoints are never peaks."""
+    mask = _interior_peaks(energies, energies[..., 1:-1] >= threshold)
+    return mask, torch.sum(mask, dim=-1)
+
+
+def peak_envelope(
+    signal: torch.Tensor, window_size: int = 512, hop_size: int = 256
+) -> torch.Tensor:
+    """Per-window max |x| (envelope.go ComputePeak): hop-block maxes when
+    hop | window (exact, max is associative), the frames otherwise."""
+    x = torch.abs(signal.to(torch.float32))
+    if window_size % hop_size == 0:
+        t = num_frames(x.shape[-1], window_size, hop_size)
+        return framed_max_hopblocks(x, window_size, hop_size, t)
+    return torch.amax(frame_signal(x, window_size, hop_size), dim=-1)
+
+
+def hilbert_envelope(signal: torch.Tensor) -> torch.Tensor:
+    """Analytic-signal magnitude |x + j H{x}| via the FFT
+    (envelope.go ComputeHilbert)."""
+    n = signal.shape[-1]
+    spec = torch.fft.fft(signal.to(torch.complex64), dim=-1)
+    h = torch.zeros(n, dtype=torch.float32, device=signal.device)
+    h[0] = 1.0
+    if n % 2 == 0:
+        h[1: n // 2] = 2.0
+        h[n // 2] = 1.0
+    else:
+        h[1: (n + 1) // 2] = 2.0
+    return torch.abs(torch.fft.ifft(spec * h, dim=-1)).to(torch.float32)
+
+
+def smooth_envelope(env: torch.Tensor, kernel: int = 5) -> torch.Tensor:
+    """Moving average over the last axis, same length, zeros outside:
+    `np.convolve(v, ones(k) / k, mode="same")`, whose output n is the
+    full convolution's (k - 1) // 2 + n, the mean of
+    env[n - k + 1 + (k - 1) // 2 .. n + (k - 1) // 2]. For an even k that
+    window is not where `conv1d(padding="same")` puts it (envelope.go
+    smoothing)."""
+    right = (kernel - 1) // 2
+    padded = F.pad(env, (kernel - 1 - right, right))
+    return torch.mean(padded.unfold(-1, kernel, 1), dim=-1)
+
+
+def np_ceil_log2(n: int) -> int:
+    k = 0
+    while (1 << k) < n:
+        k += 1
+    return k
+
+
+def estimate_tempo_autocorrelation(
+    onset_strength: torch.Tensor,
+    hop_size: int,
+    sample_rate: int,
+    min_bpm: float = 60.0,
+    max_bpm: float = 200.0,
+) -> torch.Tensor:
+    """BPM from the autocorrelation peak of the onset-strength envelope
+    within the BPM-implied lag range (tempo_estimation.go:120-229); the
+    first of equal peaks."""
+    t = onset_strength.shape[-1]
+    x = onset_strength - torch.mean(onset_strength, dim=-1, keepdim=True)
+    n_fft = 1 << np_ceil_log2(2 * t)
+    spec = torch.fft.rfft(x, n=n_fft, dim=-1)
+    ac = torch.fft.irfft(spec * torch.conj(spec), n=n_fft, dim=-1)[..., :t]
+    frame_rate = sample_rate / hop_size
+    min_lag = max(int(frame_rate * 60.0 / max_bpm), 1)
+    max_lag = min(int(frame_rate * 60.0 / min_bpm) + 1, t)
+    if min_lag >= max_lag:
+        return onset_strength.new_zeros(onset_strength.shape[:-1], dtype=torch.float32)
+    best = torch.argmax(ac[..., min_lag:max_lag], dim=-1) + min_lag
+    return 60.0 * frame_rate / best.to(torch.float32)
+
+
+def tempo_category(bpm: torch.Tensor) -> torch.Tensor:
+    """0=slow(<90) 1=moderate(<140) 2=fast (tempo_estimation.go category)."""
+    return torch.where(bpm < 90.0, 0, torch.where(bpm < 140.0, 1, 2)).to(torch.int32)
+
+
+def estimate_tempo_range(
+    signal: torch.Tensor, sample_rate: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """EstimateTempoRange (tempo_estimation.go:204-218): the mean of the
+    interval-histogram tempo (`estimate_tempo`, K1 and K4 on the card)
+    and the autocorrelation tempo of the 100 ms RMS envelope, and the
+    agreement confidence max(0, 1 - |diff|/50): (avg, confidence, diff)."""
+    x = signal.to(torch.float32)
+    onset_tempo = estimate_tempo(x, sample_rate)
+    frame = int(0.1 * sample_rate)
+    env = rms_envelope(x, frame, frame // 4)
+    ac_tempo = estimate_tempo_autocorrelation(env, frame // 4, sample_rate, min_bpm=60.0, max_bpm=180.0)
+    avg = (onset_tempo + ac_tempo) / 2.0
+    diff = torch.abs(onset_tempo - ac_tempo)
+    confidence = torch.clamp_min(1.0 - diff / 50.0, 0.0)
+    return avg, confidence, diff
+
+
+def attack_time(env: torch.Tensor, frame_rate: float) -> torch.Tensor:
+    """Time from 10% to 90% of the global peak on the rising side
+    (attack_decay.go:21-80), [..., T] -> [...] seconds: the first frames
+    at or before the (first) peak that reach 10 % and 90 % of it."""
+    peak_idx = torch.argmax(env, dim=-1, keepdim=True)
+    peak = torch.amax(env, dim=-1, keepdim=True)
+    before = torch.arange(env.shape[-1], device=env.device) <= peak_idx
+    t10 = torch.argmax(((env >= 0.1 * peak) & before).to(torch.uint8), dim=-1)
+    t90 = torch.argmax(((env >= 0.9 * peak) & before).to(torch.uint8), dim=-1)
+    return torch.clamp_min(t90 - t10, 0).to(torch.float32) / frame_rate
+
+
+def decay_time(env: torch.Tensor, frame_rate: float) -> torch.Tensor:
+    """Time from 90% to 10% of the global peak on the falling side
+    (attack_decay.go:83-140)."""
+    return attack_time(torch.flip(env, dims=(-1,)), frame_rate)
+
+
+def transient_ratio(env: torch.Tensor) -> torch.Tensor:
+    """Energy in fast-changing parts / total (attack_decay.go:143-167);
+    the threshold is mean + std (over N) of the changes."""
+    d = torch.abs(env[..., 1:] - env[..., :-1])
+    thr = torch.mean(d, dim=-1, keepdim=True) + torch.std(d, dim=-1, keepdim=True, correction=0)
+    trans = torch.sum(torch.where(d > thr, d, 0.0), dim=-1)
+    total = torch.sum(d, dim=-1)
+    return torch.where(total > 0, trans / torch.clamp_min(total, _EPS), 0.0)
+
+
+def crest_factor(signal: torch.Tensor) -> torch.Tensor:
+    """Global peak/RMS (dynamic_range.go:83-110)."""
+    peak = torch.amax(torch.abs(signal), dim=-1)
+    rms = torch.sqrt(torch.mean(signal * signal, dim=-1))
+    return torch.where(rms > 0, peak / torch.clamp_min(rms, _EPS), 0.0)
+
+
+def prefix_sums_at(values: torch.Tensor, positions) -> torch.Tensor:
+    """Prefix sums of `values` at host positions in [0, N], [..., N] ->
+    [..., len(positions)], blocked as the JAX package sums them: 128-wide
+    row sums, a cumsum over the rows, and each position's partial row."""
+    positions = np.asarray(positions)
+    n = values.shape[-1]
+    r = (n + 127) // 128
+    x2d = F.pad(values, (0, r * 128 - n)).reshape(values.shape[:-1] + (r, 128))
+    p = F.pad(torch.cumsum(x2d.sum(dim=-1), dim=-1), (1, 0))       # [..., R + 1]
+    qs = positions // 128
+    rs = positions % 128
+    dev = values.device
+    # rows at q == r only occur when pos % 128 == 0 (mask all-zero)
+    rowsel = x2d[..., torch.as_tensor(np.minimum(qs, r - 1), device=dev), :]   # [..., P, 128]
+    masks = torch.as_tensor((np.arange(128)[None, :] < rs[:, None]).astype(np.float32), device=dev)
+    part = torch.sum(rowsel * masks, dim=-1)
+    return p[..., torch.as_tensor(qs, device=dev)] + part
+
+
+# bytes of one float32 temporary of detect_onsets_complex's chunks
+COMPLEX_ONSET_CHUNK_BYTES = 512 * 2**20
+
+
+def _complex_deviation(magnitude: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+    """sum over bins of |observed - phase-advanced prediction|, [L, T, F]
+    -> [L, T - 2]."""
+    pred_phase = 2.0 * phase[..., 1:-1, :] - phase[..., :-2, :]
+    pred_re = magnitude[..., 1:-1, :] * torch.cos(pred_phase)
+    pred_im = magnitude[..., 1:-1, :] * torch.sin(pred_phase)
+    obs_re = magnitude[..., 2:, :] * torch.cos(phase[..., 2:, :])
+    obs_im = magnitude[..., 2:, :] * torch.sin(phase[..., 2:, :])
+    dev = torch.sqrt((obs_re - pred_re) ** 2 + (obs_im - pred_im) ** 2)
+    return torch.sum(dev, dim=-1)
+
+
+def detect_onsets_complex(
+    magnitude: torch.Tensor,
+    phase: torch.Tensor,
+    hop_size: int,
+    sample_rate: int,
+    threshold: float = 0.3,
+    min_interval_sec: float = 0.05,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Complex-domain onset detection (onset_detection.go complex
+    method): the deviation between the observed spectrum and the
+    phase-advanced prediction from the previous two frames, peak-picked
+    and thinned by `detect_onsets_from_flux` (K4 on the card). The
+    deviation runs over chunks of the leading rows, each chunk's
+    temporaries within COMPLEX_ONSET_CHUNK_BYTES."""
+    t, f = magnitude.shape[-2:]
+    lead = magnitude.shape[:-2]
+    mag = magnitude.reshape((-1, t, f))
+    ph = phase.reshape((-1, t, f))
+    rows = max(1, COMPLEX_ONSET_CHUNK_BYTES // max(4 * t * f, 1))
+    onset_fn = torch.cat([_complex_deviation(mag[i:i + rows], ph[i:i + rows])
+                          for i in range(0, mag.shape[0], rows)])
+    onset_fn = F.pad(onset_fn, (2, 0)).reshape(lead + (t,))
+    return detect_onsets_from_flux(onset_fn, hop_size, sample_rate, threshold, min_interval_sec)
+
+
+def energy_statistics(signal: torch.Tensor, frame_size: int, hop_size: int) -> dict:
+    """ComputeEnergyStatistics (energy.go:250-...): summary statistics of
+    the short-time energy series (std over N, variance over N - 1)."""
+    e = short_time_energy(signal, frame_size, hop_size)
+    return {
+        "mean": torch.mean(e, dim=-1),
+        "std": torch.std(e, dim=-1, correction=0),
+        "min": torch.amin(e, dim=-1),
+        "max": torch.amax(e, dim=-1),
+        "variance": energy_variance(e),
+        "entropy": energy_entropy(e),
+        "dynamic_range_db": percentile_range_db(e, 0.10, 0.95),
+    }

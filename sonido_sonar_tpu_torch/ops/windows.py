@@ -11,6 +11,8 @@ power-gain normalization `w *= 1/sqrt(mean(w^2))` at :426-437).
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
+from typing import Dict
 
 import numpy as np
 
@@ -134,7 +136,57 @@ def make_window(
     gen = _GENERATORS.get(WindowType(window_type))
     w = gen(size, beta, alpha, symmetric)
     if normalize:
-        w = w / np.sqrt(float(np.sum(w * w)) / float(len(w)))
+        w = w / np.sqrt(window_properties(w).power_gain)
     out = w.astype(dtype)
     out.setflags(write=False)
     return out
+
+
+@dataclass(frozen=True)
+class WindowProperties:
+    """Analysis properties (analyzers/windowing.go:36-47,395-424)."""
+
+    energy: float
+    power_gain: float      # mean(w^2), incoherent averaging gain
+    noise_gain: float      # mean(w), coherent averaging gain
+    enbw: float            # equivalent noise bandwidth (bins)
+    scallop_loss: float    # dB
+    coherent: bool
+
+
+def window_properties(w: np.ndarray) -> WindowProperties:
+    n = float(len(w))
+    energy = float(np.sum(w * w))
+    coherent_sum = float(np.sum(w))
+    power_gain = energy / n
+    noise_gain = coherent_sum / n
+    enbw = n * energy / (coherent_sum * coherent_sum)
+    scallop = -20.0 * np.log10(abs(noise_gain)) if noise_gain != 0 else np.inf
+    return WindowProperties(
+        energy=energy,
+        power_gain=power_gain,
+        noise_gain=noise_gain,
+        enbw=enbw,
+        scallop_loss=float(scallop),
+        coherent=noise_gain > 0.5,
+    )
+
+
+def all_window_types() -> Dict[str, WindowType]:
+    return {wt.value: wt for wt in WindowType}
+
+
+_RECOMMENDED = {
+    "general_analysis": WindowType.HANN,
+    "speech_analysis": WindowType.HAMMING,
+    "music_analysis": WindowType.BLACKMAN,
+    "transient_analysis": WindowType.RECTANGULAR,
+    "high_resolution": WindowType.BLACKMAN_HARRIS,
+}
+
+
+def get_recommended_window(use_case: str, size: int) -> np.ndarray:
+    """GetRecommendedWindow (analyzers/windowing.go:446-470): normalized
+    symmetric window for a named use case."""
+    wt = _RECOMMENDED.get(use_case, WindowType.HANN)
+    return make_window(wt, size, normalize=True, symmetric=True)

@@ -896,3 +896,92 @@ def check_pitch_decisions(pitch, conf, ref_pitch, ref_conf) -> Report:
     if errors["conf_max_abs"] > CONF_ATOL:
         failures.append(f"confidence: max difference {errors['conf_max_abs']:.3g} > {CONF_ATOL}")
     return errors, failures
+
+
+# The op surface (ops/common, fft, chroma_analysis, stats/{distance,
+# clustering, entropy, moments, percentiles} and the names added to
+# filters, temporal, spectral, speech, mel, mfcc, framing and windows),
+# the port against JAX on the CPU and the card against the CPU:
+# - elementwise math and reductions of up to a few thousand float32 terms
+#   in another order (normalizers, interpolators, distances, entropies,
+#   chroma statistics, envelopes): ~1e-7 relative (measured), bounded at
+#   OPS_RTOL, with OPS_ATOL for values near 0. Index outputs (argmax and
+#   argmin picks, kNN order, histogram bins, peak indices, k-means labels)
+#   are equal on inputs without near-ties;
+# - moments: x**k with an integer k is repeated multiplication in both
+#   packages, m2 ** (k/2) a float pow; with the sums' order the 3rd to
+#   5th central and standardized moments agreed to 2.7e-6 of their value
+#   (measured on 1,000-sample rows), bounded at MOMENTS_RTOL;
+# - the block-scan filters (filters.biquad, adaptive_pre_emphasis): the
+#   port sums each 256-sample chunk as one matmul with a float64-designed
+#   table, JAX runs a sequential float32 lax.scan whose rounding drifts
+#   over the filter's memory. Against a float64 recurrence the port
+#   stayed within 9.5e-7 of the output's peak (biquad at Q = 100) and
+#   2.2e-7 (adaptive, r = 0.001), JAX within 5.0e-6 and 2.4e-5: so the
+#   port is held to a float64 recurrence at BLOCK_SCAN_F64_ATOL_SCALE and
+#   to JAX at BLOCK_SCAN_JAX_ATOL_SCALE, each times the peak |output|;
+# - Smith-Waterman's rows: the closed form cummax(a + j gap) - j gap
+#   rounds a + j gap where JAX's associative scan rounds a - g; rows
+#   feed one another, so the difference grows with the scores: 1.0e-3 on
+#   a peak score of 281 (3.7e-6 of it) over 300 rows, measured.
+#   SW_ATOL_SCALE times the peak score bounds every element, and the
+#   normalized score by the same share;
+# - DTW's rows through the same min-plus scan as JAX's: 2.4e-7 on exp(-d)
+#   (measured), the overall similarity within OPS_RTOL;
+# - an optimal transposition (OTI) is a first-of-maxima over 12 host
+#   floats: the port's shift may differ from JAX's only where JAX's
+#   similarity at the port's shift is within TRANSPOSITION_TIE of JAX's
+#   best.
+OPS_RTOL = 1e-5
+OPS_ATOL = 1e-6
+MOMENTS_RTOL = 2e-5
+BLOCK_SCAN_F64_ATOL_SCALE = 4e-6
+BLOCK_SCAN_JAX_ATOL_SCALE = 1e-4
+SW_ATOL_SCALE = 3e-5
+TRANSPOSITION_TIE = 1e-5
+# k-means on real MFCC frames, card against CPU: the [N, K] squared
+# distances come from the |x|^2 + |c|^2 - 2 x.c identity in two float32
+# GEMMs, ~1e-6 of |x|^2 + |c|^2 apart, so a frame whose two nearest
+# centroids are within KMEANS_TIE_SCALE of that scale may go to either.
+# Each flip moves two centroids a little and Lloyd's 50 steps carry it,
+# so after a fit at most KMEANS_LABEL_MISS_SHARE of the labels may
+# differ, and the inertia by KMEANS_INERTIA_RTOL.
+KMEANS_TIE_SCALE = 1e-5
+KMEANS_LABEL_MISS_SHARE = 0.01
+KMEANS_INERTIA_RTOL = 1e-3
+
+
+def moments_analyze_atol(x) -> Dict[str, float]:
+    """Absolute bounds for `stats.moments.analyze` of a float32 series
+    computed in two summation orders (card against CPU, port against
+    JAX). The central moments are taken about the float32 mean, and two
+    orders put that mean up to ~2 log2(n) ulps apart, dm; a k-th central
+    moment then moves by ~k dm E|x - m|^(k-1), which is not small against
+    the moment where |mean| is large against the spread (a level series:
+    the third moment of an energy series near 1,382 with a spread of 8
+    moved by 6e-3 of 2.13 on an H100 against the CPU). The ratios follow
+    by first-order propagation, doubled; each key also gets
+    MOMENTS_RTOL of its float64 value. L-moments are float64 on the host
+    in both and keep MOMENTS_RTOL alone."""
+    x = np.asarray(x, np.float64)
+    n = x.size
+    eps = float(np.finfo(np.float32).eps)
+    m = x.mean()
+    d = x - m
+    dm = 2.0 * max(np.log2(n), 1.0) * eps * abs(m) + OPS_ATOL
+    m2, m3, m4 = (float(np.mean(d ** k)) for k in (2, 3, 4))
+    s = np.sqrt(m2)
+
+    def c(k):
+        return k * dm * float(np.mean(np.abs(d) ** (k - 1))) + 2.0 * np.log2(n) * eps * float(np.mean(np.abs(d) ** k))
+
+    tol = {"mean": dm, "k1": dm, "variance": c(2) * n / max(n - 1, 1), "k2": c(2),
+           "std": c(2) / max(2.0 * s, OPS_ATOL), "k3": c(3), "k4": c(4) + 6.0 * m2 * c(2),
+           "pearson_skewness": 3.0 * dm / max(s, OPS_ATOL) + 1.5 * c(2) / max(m2, OPS_ATOL),
+           "skewness": c(3) / max(s ** 3, OPS_ATOL) + 1.5 * abs(m3) * c(2) / max(m2 ** 2.5, OPS_ATOL),
+           "kurtosis": c(4) / max(m2 ** 2, OPS_ATOL) + 2.0 * m4 * c(2) / max(m2 ** 3, OPS_ATOL),
+           "bowley_skewness": 0.0}
+    ref = {"mean": m, "k1": m, "variance": m2, "k2": m2, "std": s, "k3": m3, "k4": m4 - 3 * m2 * m2,
+           "pearson_skewness": 0.0, "skewness": m3 / max(s ** 3, OPS_ATOL), "kurtosis": m4 / max(m2 ** 2, OPS_ATOL),
+           "bowley_skewness": 0.0}
+    return {k: 2.0 * v + MOMENTS_RTOL * abs(ref[k]) + OPS_ATOL for k, v in tol.items()}
