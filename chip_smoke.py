@@ -254,12 +254,41 @@ Phases 37 and 38 run last (the music-analysis ops, then the op surface):
      CPU over 2 clips (utils/parity OPS_*, MOMENTS_RTOL, BLOCK_SCAN_*,
      SW_ATOL_SCALE); launches K1 and K4 only; peak device memory
 
+Phases 39 and 40 run after them (scale-out and cold start):
+ 39. BatchedFingerprintPipeline at B=128 x 30 s on a one-entry mesh (the
+     card, make_mesh()) and a two-entry mesh on the one card
+     (make_mesh(devices=[cuda:0, cuda:0]): a repeated entry is a shard run
+     after the other): K1 and K2 launched once per shard, the features
+     against batched_fingerprint_features (utils/parity
+     .check_sharded_step: bit for bit, or a key that is not held to the
+     whole-path bounds; the worst difference printed), the host's
+     synchronizations in one sharded step (CUDA's sync debug mode), the
+     unsharded step and both meshes' steps in turns over 5 steps each
+     with audio-hours per wall-hour; run_stream over the two-entry
+     pipeline equal to blocking calls; sharded_top_k_matches and
+     sharded_batched_similarity over phase 29's 262,144 rows on both
+     meshes against mesh=None (the ranking, ties lowest index first; the
+     scores within COMPARATOR_HOST_ATOL), ms per query; a fresh process
+     with an NCCL group of world size 1 (initialize_distributed, the
+     global mesh, the pipeline on a one- and a two-entry mesh and the
+     all-gather merge of the top k against the same calls without the
+     group, destroy_process_group). One H100 holds no NCCL group of two
+     ranks: the two-process path is checked on the CPU only
+     (tests/test_torch_multihost.py)
+ 40. warm-up in three fresh processes sharing one temporary cache_dir:
+     warmup(cache_dir=...) at B=128 x 30 s, alignment pairs (1, 32) and a
+     262,144-row corpus builds the library there with nvcc (hit count 0);
+     a second process loads it without nvcc (hit count 1), warms the
+     cdn_latency shape and times two examples.cdn_latency calls on a 60 s
+     speech pair; a third loads it and times the same calls without a
+     warm-up; each stage's seconds
+
 A {"comparator": {...}} line (the card, phases 28-29's gates, launch
 counts and times), an {"extractor_classes": {...}} line (phases
 30-32's launch counts, step times, peak memory and the streamer's
 numbers) and the {"ingest": ...}, {"cdn_latency": ...}, {"accuracy": ...},
-{"stream": ...}, {"music_analysis": ...} and {"op_surface": ...} lines of
-phases 33-38 (each
+{"stream": ...}, {"music_analysis": ...}, {"op_surface": ...}, {"mesh": ...}
+and {"warmup": ...} lines of phases 33-40 (each
 path's kernel launches, counted from 0 just before it) come before the
 kernels line. The second-to-last line
 is {"kernels": [...]}: for each kernel its
@@ -2669,6 +2698,307 @@ def run_op_surface(card: str, dev: torch.device) -> dict:
     return res
 
 
+MESH_STEPS = 5            # phase 39: timed steps of each configuration, in turns
+MESH_STREAM_BATCHES = 3   # phase 39: batches through run_stream over the two-entry pipeline
+WARM_CLIP_SECONDS = 60    # phase 40: the cdn_latency-shaped pair
+
+MESH_NCCL_STEP = """
+import json, socket, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+import torch.distributed as dist
+import chip_smoke as C
+from sonido_sonar_tpu_torch.config.config import FeatureConfig
+from sonido_sonar_tpu_torch.parallel import BatchedFingerprintPipeline, make_mesh, sharded_top_k_matches
+from sonido_sonar_tpu_torch.parallel.mesh import initialize_distributed
+from sonido_sonar_tpu_torch.parallel.pipeline import batched_fingerprint_features
+from sonido_sonar_tpu_torch.utils import parity
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+x = parity.synth_pcm(C.FULL_B, C.FULL_SECONDS * C.SR, C.SEED + 39, C.SR, dev)
+cfg = FeatureConfig(sample_rate=C.SR, window_size=C.WINDOW, hop_size=C.HOP)
+corpus, src, dups, rng = C.corpus_rows(44)
+queries = [rng.standard_normal(44).astype(np.float32), corpus[src]]
+want = batched_fingerprint_features(x, sample_rate=C.SR, window_size=C.WINDOW, hop_size=C.HOP)
+want_topk = [sharded_top_k_matches(q, corpus, k=C.TOP_K, mesh=None, device=dev) for q in queries]
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+t0 = time.perf_counter()
+initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+res = {"init_s": time.perf_counter() - t0, "backend": dist.get_backend(),
+       "world_size": dist.get_world_size()}
+for name, devices in (("one", None), ("two", [dev, dev])):
+    mesh = make_mesh(devices=devices)
+    got, launches, wall_s = C.counted(lambda: BatchedFingerprintPipeline(mesh, cfg)(x))
+    res[name] = {"entries": mesh.size, "distributed": mesh.distributed, "launches": launches,
+                 "bit_equal": sorted(got) == sorted(want)
+                 and all(torch.equal(got[k], want[k]) for k in want),
+                 "max_abs_diff": max(float((got[k] - want[k]).abs().max()) for k in want)}
+    tk = [sharded_top_k_matches(q, corpus, k=C.TOP_K, mesh=mesh) for q in queries]
+    res[name]["topk_same_indices"] = all(np.array_equal(a[0], b[0]) for a, b in zip(tk, want_topk))
+    res[name]["topk_max_score_diff"] = max(float(np.abs(a[1] - b[1]).max())
+                                           for a, b in zip(tk, want_topk))
+dist.destroy_process_group()
+res["destroyed"] = not dist.is_initialized()
+print(json.dumps(res))
+"""
+
+
+def run_mesh(card: str, dev: torch.device) -> dict:
+    """Phase 39: BatchedFingerprintPipeline at B=128 x 30 s on a one-entry
+    mesh (the card) and a two-entry mesh on the one card (a repeated
+    entry is a shard that runs after the other): K1 and K2 launched once
+    per shard, the features against the unsharded step
+    (utils/parity.check_sharded_step: bit for bit, or a key that is not
+    held to the whole-path bounds), the host's synchronizations in a
+    sharded step (CUDA's sync debug mode), the three steps in turns;
+    run_stream over the two-entry pipeline equal to blocking calls;
+    sharded_top_k_matches and sharded_batched_similarity over phase 29's
+    262,144 rows on both meshes against mesh=None, ms per query; then a
+    fresh process with an NCCL group of world size 1 (the global mesh,
+    the pipeline and the all-gather merge of the top k against the same
+    calls without the group). One H100 holds no NCCL group of two ranks:
+    the two-process path is checked on the CPU (tests/test_torch_multihost.py).
+    Returns the {"mesh": ...} numbers."""
+    from sonido_sonar_tpu_torch.config.config import FeatureConfig
+    from sonido_sonar_tpu_torch.fingerprint import device_compare as DC
+    from sonido_sonar_tpu_torch.parallel import BatchedFingerprintPipeline, make_mesh, sharded_top_k_matches
+    from sonido_sonar_tpu_torch.parallel.pipeline import batched_fingerprint_features, run_stream
+    from sonido_sonar_tpu_torch.utils import parity
+
+    t_phase = time.perf_counter()
+    cfg = FeatureConfig(sample_rate=SR, window_size=WINDOW, hop_size=HOP)
+    x = parity.synth_pcm(FULL_B, FULL_SECONDS * SR, SEED + 39, SR, dev)
+    meshes = {"one": make_mesh(devices=None if torch.cuda.device_count() == 1 else [dev]),
+              "two": make_mesh(devices=[dev, dev])}
+    steps = {"unsharded": lambda: batched_fingerprint_features(x, sample_rate=SR, window_size=WINDOW,
+                                                                 hop_size=HOP)}
+    want, want_launches, _ = counted(steps["unsharded"])
+    res = {"batch": FULL_B, "clip_s": FULL_SECONDS, "unsharded_launches": want_launches}
+    for name, mesh in meshes.items():
+        pipe = BatchedFingerprintPipeline(mesh, cfg)
+        steps[name] = lambda pipe=pipe: pipe(x)
+        got, launches, _ = counted(steps[name])
+        if launches["K1"] != mesh.size or launches["K2"] != mesh.size:
+            raise AssertionError(f"the {mesh.size}-entry mesh launched {launches}, expected K1 and K2 "
+                                 f"{mesh.size} times (once per shard)")
+        errors = require(parity.check_sharded_step(
+            {k: np32(v) for k, v in got.items()}, {k: np32(v) for k, v in want.items()},
+            lambda: parity.near_zero_frames(np32(x), WINDOW, HOP, PRE_EMPH), SR, WINDOW),
+            f"{name}-entry mesh vs the unsharded step, B={FULL_B} x {FULL_SECONDS} s")
+        bit_equal = [k for k in want if torch.equal(got[k], want[k])]
+        res[name] = {"entries": mesh.size, "launches": launches, "bit_equal_keys": len(bit_equal),
+                     "keys": len(want), "max_abs_diff": max(errors[k] for k in want),
+                     "differing_keys": sorted(set(want) - set(bit_equal))}
+        log(f"[{name}-entry mesh] launches {launches}; {len(bit_equal)} of {len(want)} keys bit-equal "
+            f"to the unsharded step, worst |diff| {res[name]['max_abs_diff']:.3g} "
+            f"({res[name]['differing_keys']}) [{card}]")
+        del got
+    # the host's waits inside a sharded step: each would serialize the
+    # shards of a mesh over several cards
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            steps["two"]()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    res["two_step_host_syncs"] = len(syncs)
+    log(f"[two-entry mesh] {len(syncs)} host synchronizations in one step (CUDA sync debug mode): "
+        f"{sorted(set(syncs))[:4]}")
+    times = {name: [] for name in steps}
+    for _ in range(MESH_STEPS):
+        for name, fn in steps.items():
+            times[name] += timed_steps(fn, 1)
+    for name, step_s in times.items():
+        res[f"{name}_ms"] = report_steps(f"{name} step B={FULL_B} x {FULL_SECONDS} s (in turns)",
+                                         step_s, FULL_B * FULL_SECONDS, card)
+        res[f"{name}_steps_ms"] = [1e3 * s for s in step_s]
+        res[f"{name}_audio_h_per_wall_h"] = FULL_B * FULL_SECONDS / float(np.mean(step_s))
+    torch.cuda.empty_cache()
+
+    pipe = BatchedFingerprintPipeline(meshes["two"], cfg)
+    batches = [x * (1.0 - 0.03 * k) for k in range(MESH_STREAM_BATCHES)]
+    got, launches, _ = counted(lambda: list(run_stream(pipe, batches, drain_every=2, device=dev)))
+    if len(got) != len(batches):
+        raise AssertionError(f"run_stream yielded {len(got)} results for {len(batches)} batches")
+    for k, b in enumerate(batches):
+        direct = pipe(b)
+        bad = [key for key in direct if not torch.equal(got[k][key], direct[key])]
+        if bad:
+            raise AssertionError(f"run_stream over the pipeline, batch {k}: {bad} differ")
+    res["run_stream"] = {"batches": len(batches), "launches": launches, "bit_equal": True}
+    log(f"[run_stream over the two-entry pipeline] {len(batches)} batches equal to blocking calls, "
+        f"in order; launches {launches}")
+    del got, batches, x
+    torch.cuda.empty_cache()
+
+    corpus, src, dups, rng = corpus_rows(DC.layout_size(13))
+    X = torch.from_numpy(corpus).to(dev)
+    mcorpus = X[:, :44].contiguous()              # the matcher's packed layout
+    w = np.array([0.35, 0.25, 0.10, 0.20, 0.10, 0.10], np.float32)
+    match = torch.ones(CORPUS_ROWS, dtype=torch.bool, device=dev)
+    queries = {"random": rng.standard_normal(DC.layout_size(13)).astype(np.float32),
+               "tied": corpus[src]}
+    tied = sorted([src, *dups.tolist()])[:TOP_K]
+    for label, q in queries.items():
+        ref = sharded_top_k_matches(q[:44], mcorpus, k=2 * TOP_K, mesh=None)
+        ref_sim = DC.sharded_batched_similarity(q, X, w, match, num_mfcc_coeffs=13)
+        for name, mesh in [("none", None), *meshes.items()]:
+            def topk():
+                return sharded_top_k_matches(q[:44], mcorpus, k=TOP_K, mesh=mesh)
+
+            def similarity():
+                return DC.sharded_batched_similarity(q, X, w, match, mesh=mesh, num_mfcc_coeffs=13)
+
+            (idx, scores), t_topk = warm_median_ms(topk, 5)
+            sim, t_sim = warm_median_ms(similarity, 5)
+            runs = _same_ranking(f"sharded_top_k_matches, {label} query, {name} mesh", idx.tolist(),
+                                 scores.tolist(), ref[0].tolist(), ref[1].tolist())
+            if label == "tied" and idx.tolist() != tied:
+                raise AssertionError(f"{name} mesh: the tied rows are not lowest index first: "
+                                     f"{idx.tolist()}, expected {tied}")
+            err = max(float(np.abs(sim[k] - ref_sim[k]).max()) for k in ("overall", "confidence"))
+            same = all(np.array_equal(sim[k], ref_sim[k]) for k in ("match_class", "feature_present"))
+            if not (err <= parity.COMPARATOR_HOST_ATOL and same and len(sim["overall"]) == CORPUS_ROWS):
+                raise AssertionError(f"sharded_batched_similarity, {name} mesh: |diff| {err:.3g}, "
+                                     f"classes and gates equal {same}")
+            res[f"search_{label}_{name}"] = {"topk_ms": t_topk, "similarity_ms": t_sim,
+                                             "tied_runs": runs, "similarity_err": err}
+            log(f"[corpus C = {CORPUS_ROWS}, {label} query, {name} mesh] sharded_top_k_matches "
+                f"{t_topk:.3f} ms, sharded_batched_similarity {t_sim:.3f} ms a query (blocking, "
+                f"to the host); the ranking of mesh=None ({runs} tied runs), |diff| {err:.3g} "
+                f"[{card}]")
+    del X, mcorpus, match
+    torch.cuda.empty_cache()
+
+    proc = subprocess.run([sys.executable, "-c", MESH_NCCL_STEP, str(Path(__file__).resolve().parent)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the NCCL world-size-1 run failed: {proc.stderr[-3000:]}")
+    nccl = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"[NCCL group of world size 1, a fresh process] {nccl}")
+    for name, size in (("one", 1), ("two", 2)):
+        r = nccl[name]
+        if not (r["bit_equal"] and r["topk_same_indices"] and r["distributed"]
+                and r["topk_max_score_diff"] <= parity.COMPARATOR_HOST_ATOL
+                and r["launches"]["K1"] == r["launches"]["K2"] == size):
+            raise AssertionError(f"the NCCL run's {name}-entry mesh: {r}")
+    if nccl["backend"] != "nccl" or nccl["world_size"] != 1 or not nccl["destroyed"]:
+        raise AssertionError(f"the NCCL run: {nccl}")
+    res["nccl_world_size_1"] = nccl
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+WARM_FIRST = """
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke as C
+from sonido_sonar_tpu_torch import _build
+from sonido_sonar_tpu_torch.warmup import cache_hit_counter, warmup
+hits = cache_hit_counter()
+import_s = time.perf_counter() - t0
+rep = warmup(cache_dir=sys.argv[2], batch_sizes=(C.FULL_B,), clip_seconds=(C.FULL_SECONDS,),
+             components=("fingerprint", "alignment", "search"), alignment_pairs=(1, 32),
+             corpus_sizes=(C.CORPUS_ROWS,))
+info = _build.build()[1]
+print(json.dumps({"import_s": import_s, "stages_s": rep, "hits": hits(), "nvcc_s": info.seconds,
+                  "library": str(info.path), "wall_s": time.perf_counter() - t0}))
+"""
+
+WARM_AGAIN = """
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke as C
+from sonido_sonar_tpu_torch import _build
+from sonido_sonar_tpu_torch.examples import cdn_latency
+from sonido_sonar_tpu_torch.warmup import cache_hit_counter, enable_persistent_cache, warmup
+hits = cache_hit_counter()
+res = {"import_s": time.perf_counter() - t0, "warmed": sys.argv[3] == "warm"}
+t = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+res["context_s"] = time.perf_counter() - t
+t = time.perf_counter()
+enable_persistent_cache(sys.argv[2])
+info = _build.build()[1]
+res.update(load_s=time.perf_counter() - t, nvcc_s=info.seconds, library=str(info.path))
+if res["warmed"]:
+    res["stages_s"] = warmup(batch_sizes=(1,), clip_seconds=(C.WARM_CLIP_SECONDS,),
+                             components=("fingerprint", "alignment"), alignment_pairs=(1,),
+                             window_seconds=C.WARM_CLIP_SECONDS, max_lag_seconds=C.LATENCY_BUDGET)
+calls = []
+for _ in range(2):
+    t = time.perf_counter()
+    out = cdn_latency.main(sys.argv[4], sys.argv[5], C.LATENCY_BUDGET)
+    calls.append(1e3 * (time.perf_counter() - t))
+res.update(calls_ms=calls, latency_s=out["latency_s"], hits=hits(),
+           wall_s=time.perf_counter() - t0)
+print(json.dumps(res))
+"""
+
+
+def run_warmup(card: str) -> dict:
+    """Phase 40: three fresh processes sharing one temporary cache_dir.
+    The first runs warmup(cache_dir=...) with the fingerprint, alignment
+    and search components at B=128 x 30 s, alignment pairs (1, 32) and a
+    262,144-row corpus: nvcc runs into the directory, no cache hit. The
+    second loads the library from it without nvcc (one hit), warms the
+    cdn_latency shape (one 60 s clip, one pair) and times two
+    examples.cdn_latency calls on a 60 s speech pair; the third loads the
+    library the same way and times the same two calls without a warm-up.
+    Each process initializes its CUDA context before the timed part, so
+    the first calls differ by what warmup primes (cuFFT plans, cuBLAS
+    handles, the caching allocator). Returns the {"warmup": ...} numbers."""
+    from sonido_sonar_tpu_torch.io.decode import write_wav
+    from sonido_sonar_tpu_torch.io.synth import shift_signal, speech_like
+
+    here = str(Path(__file__).resolve().parent)
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="sonido_warm_") as tmp:
+        cache = str(Path(tmp) / "kernels")
+        src = speech_like(WARM_CLIP_SECONDS, SR, seed=SEED + 200, random_syllables=True)
+        sp, cp = str(Path(tmp) / "src.wav"), str(Path(tmp) / "cdn.wav")
+        write_wav(sp, src, SR)
+        write_wav(cp, shift_signal(src, LATENCY_LAG, noise=0.02, gain=0.9), SR)
+        for name, script, args in (("first", WARM_FIRST, [cache]),
+                                   ("warmed", WARM_AGAIN, [cache, "warm", sp, cp]),
+                                   ("cold", WARM_AGAIN, [cache, "cold", sp, cp])):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", script, here, *args], capture_output=True,
+                                  text=True, timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 40, the {name} process failed: {proc.stderr[-3000:]}")
+            res[name] = {**json.loads(proc.stdout.strip().splitlines()[-1]),
+                         "process_s": time.perf_counter() - t0}
+            log(f"[warmup, the {name} process] {res[name]} [{card}]")
+    first, warmed, cold = res["first"], res["warmed"], res["cold"]
+    if not (first["hits"] == 0 and first["nvcc_s"] > 0 and Path(first["library"]).parent.name == "kernels"):
+        raise AssertionError(f"the first process did not build into the cache dir: {first}")
+    for r in (warmed, cold):
+        if not (r["hits"] == 1 and r["nvcc_s"] == 0.0 and r["library"] == first["library"]):
+            raise AssertionError(f"a later process did not load the library from the cache: {r}")
+        if not abs(r["latency_s"] - LATENCY_LAG / SR) <= HOP / SR:
+            raise AssertionError(f"cdn_latency after the cache load: latency {r['latency_s']}")
+    log(f"[warmup] the first process: nvcc {first['nvcc_s']:.1f} s, stages "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in first["stages_s"].items())
+        + f"; a later process loads the library in {warmed['load_s']:.3f} s (no nvcc, hit count "
+        f"{warmed['hits']}); cdn_latency first/second call {warmed['calls_ms'][0]:.1f}/"
+        f"{warmed['calls_ms'][1]:.1f} ms after warmup ({sum(warmed['stages_s'].values()):.2f} s), "
+        f"{cold['calls_ms'][0]:.1f}/{cold['calls_ms'][1]:.1f} ms without [{card}]")
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     card = card_line()                                        # phase 1
@@ -3122,6 +3452,8 @@ def main() -> int:
     stream = run_stream_phase(card, dev)                                # phase 36
     music = run_music_analysis(card, dev)                               # phase 37
     surface = run_op_surface(card, dev)                                 # phase 38
+    mesh = run_mesh(card, dev)                                          # phase 39
+    warm = run_warmup(card)                                             # phase 40
 
     for mod in ("jax", "sonido_sonar_tpu"):
         if mod in sys.modules:
@@ -3192,7 +3524,8 @@ def main() -> int:
     print(json.dumps({"comparator": comparator}), flush=True)
     print(json.dumps({"extractor_classes": classes}), flush=True)
     for key, value in (("ingest", ingest), ("cdn_latency", latency), ("accuracy", accuracy),
-                       ("stream", stream), ("music_analysis", music), ("op_surface", surface)):
+                       ("stream", stream), ("music_analysis", music), ("op_surface", surface),
+                       ("mesh", mesh), ("warmup", warm)):
         print(json.dumps({key: value}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,17 @@ Entry points of the ported slices:
     fleet.push_cdn_all(cdn)
     latencies = fleet.measure_all()
 
+Scale-out and cold start:
+
+    from sonido_sonar_tpu_torch.parallel import (
+        BatchedFingerprintPipeline, make_mesh,
+    )
+    pipe = BatchedFingerprintPipeline(make_mesh(), FeatureConfig(44100, 1024, 256))
+    feats = pipe(pcm)               # [B, N], B split over the CUDA devices
+
+    from sonido_sonar_tpu_torch import warmup
+    warmup(cache_dir="/var/cache/sonido_kernels")  # build once per fleet
+
 The JAX examples and accuracy sweep run as modules:
 `python -m sonido_sonar_tpu_torch.examples.cdn_latency src.wav cdn.wav`,
 `python -m sonido_sonar_tpu_torch.eval_accuracy --full`.
@@ -47,4 +58,8 @@ from sonido_sonar_tpu_torch.monitor import (  # noqa: F401,E402
     FleetMonitor,
     LatencyMeasurement,
     LatencyMonitor,
+)
+from sonido_sonar_tpu_torch.warmup import (  # noqa: F401,E402
+    enable_persistent_cache,
+    warmup,
 )

@@ -9,11 +9,14 @@ with a plain C interface, loaded with ctypes:
     nvcc -shared -o _build/libsonido_kernels_<hash>.so _build/<hash>/*.o
 
 The build runs at first use, from this package's sources only, into
-`_build/` beside this file (git-ignored). The library's name carries a
-hash of the sources, the headers they include (`csrc/*.cuh`) and the
-flags, so an edited source or header is rebuilt and a stale library is
-never loaded. Nothing falls back: a missing nvcc or a
-failed build raises `KernelError`.
+`_build/` beside this file (git-ignored), or into the directory that
+`warmup.enable_persistent_cache` names (`use_build_dir`). The library's
+name carries a hash of the sources, the headers they include
+(`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. Processes that start at once build
+under an exclusive `flock` on the build directory: one runs nvcc, the
+others wait and load its library. Nothing falls back: a missing nvcc or
+a failed build raises `KernelError`.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()` after the launch; `call` raises `KernelError` on a
@@ -25,6 +28,7 @@ error.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -152,14 +156,34 @@ def _run_nvcc(nvcc: str, out: Path) -> str:
     return "\n".join(logs)
 
 
-@functools.lru_cache(maxsize=1)
-def build() -> tuple:
-    """(ctypes library, BuildInfo); builds once per process."""
-    lib_path = BUILD_DIR / f"libsonido_kernels_{source_hash()}.so"
-    log_path = lib_path.with_suffix(".log")
-    seconds = 0.0
-    if not lib_path.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def library_path() -> Path:
+    """Where this checkout's library is (or will be) built."""
+    return BUILD_DIR / f"libsonido_kernels_{source_hash()}.so"
+
+
+# build() calls that loaded a library already on disk instead of running
+# nvcc (warmup.cache_hit_counter reads it)
+loads_from_disk = 0
+
+
+def use_build_dir(path) -> None:
+    """Build and load the library under `path` from the next `build()`
+    on (a library this process already loaded stays loaded)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+    build.cache_clear()
+
+
+def _build_library(lib_path: Path):
+    """Run nvcc into `lib_path` unless a process that held the lock
+    before this one has; returns nvcc's wall seconds, or None when it
+    found the library built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd = os.open(BUILD_DIR, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)  # released when fd closes
+        if lib_path.is_file():
+            return None
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
         try:
@@ -169,13 +193,31 @@ def build() -> tuple:
             raise
         finally:
             shutil.rmtree(tmp.with_suffix(""), ignore_errors=True)
-        seconds = time.perf_counter() - t0
-        log_path.write_text(log)
-        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
+        lib_path.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib_path)  # atomic: a reader never sees half a file
+        return time.perf_counter() - t0
+    finally:
+        os.close(fd)
+
+
+def _load(lib_path: Path):
     try:
-        lib = ctypes.CDLL(str(lib_path))
+        return ctypes.CDLL(str(lib_path))
     except OSError as e:
         raise KernelError(f"cannot load {lib_path}: {e}") from e
+
+
+@functools.lru_cache(maxsize=1)
+def build() -> tuple:
+    """(ctypes library, BuildInfo); builds once per process (once per
+    build directory, `use_build_dir`)."""
+    global loads_from_disk
+    lib_path = library_path()
+    log_path = lib_path.with_suffix(".log")
+    seconds = None if lib_path.is_file() else _build_library(lib_path)
+    if seconds is None:
+        loads_from_disk += 1
+    lib = _load(lib_path)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -183,7 +225,7 @@ def build() -> tuple:
     lib.sonido_error_string.argtypes = (ctypes.c_int,)
     lib.sonido_error_string.restype = ctypes.c_char_p
     log = log_path.read_text() if log_path.is_file() else ""
-    return lib, BuildInfo(lib_path, seconds, log)
+    return lib, BuildInfo(lib_path, seconds or 0.0, log)
 
 
 def call(name: str, *args) -> None:

@@ -474,13 +474,11 @@ class FingerprintComparator:
         float64 parity path). `prefilter_threshold` is kept for API
         compatibility: device scoring engages above it (default 0 =
         always). With enable_detailed_metrics the device pass also
-        computes the quality chain (batched_similarity_detailed).
+        computes the quality chain (batched_similarity_detailed). With
+        `mesh` the packed corpus is sharded over its "data" axis (the
+        full-[C] pass, `batch_compare_device`)."""
+        from sonido_sonar_tpu_torch.fingerprint.device_compare import PackedCorpus
 
-        `mesh` (a sharded corpus) is not ported: a mesh raises
-        NotImplementedError (ROADMAP item 21)."""
-        from sonido_sonar_tpu_torch.fingerprint.device_compare import PackedCorpus, no_mesh
-
-        no_mesh(mesh, "find_best_matches")
         max_results = max_results or self.config.max_candidates
         use_device = use_device_prefilter and len(candidates) > prefilter_threshold
         if not use_device:
@@ -491,10 +489,10 @@ class FingerprintComparator:
                 for r in results
                 if r.overall_similarity >= self.config.similarity_threshold
             ]
-        elif self.config.enable_detailed_metrics:
-            # quality chain: the full-[C] device pass
+        elif self.config.enable_detailed_metrics or mesh is not None:
+            # quality chain / sharded corpus: the full-[C] device pass
             cands = [c for c in candidates if c is not None and c.id != query.id]
-            results = self.batch_compare_device(query, cands)
+            results = self.batch_compare_device(query, cands, mesh=mesh)
             matches = [
                 Match(c, r, 0)
                 for c, r in zip(cands, results)
@@ -694,8 +692,8 @@ class FingerprintComparator:
         candidate order (no skipping — the caller filters None/self).
         Matches the host `compare` to float32 rounding; with
         enable_detailed_metrics the quality chain (comparison.go:892-1008)
-        runs in the same pass. A `mesh` raises NotImplementedError
-        (ROADMAP item 21)."""
+        runs in the same pass. With `mesh` the candidates are sharded
+        over its "data" axis (device_compare.sharded_batched_similarity)."""
         from sonido_sonar_tpu_torch.fingerprint.device_compare import (
             FEATURE_ORDER,
             MATCH_CLASSES,

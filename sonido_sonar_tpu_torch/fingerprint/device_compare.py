@@ -51,8 +51,8 @@ from sonido_sonar_tpu_torch.config.config import ContentType
 from sonido_sonar_tpu_torch.fingerprint.comparison import (
     _CONTENT_WEIGHTS,
     _DEFAULT_WEIGHTS,
+    _copy_to_host_async,
     _size,
-    _to_host,
     _to_np,
     extract_mfcc_statistics,
 )
@@ -67,16 +67,6 @@ FEATURE_ORDER = ("mfcc", "spectral", "chroma", "temporal", "speech", "harmonic")
 
 # match classes, indexed by the bucket the scoring pass emits
 MATCH_CLASSES = ("weak", "somewhat_similar", "similar", "very_similar", "exact")
-
-
-def no_mesh(mesh, what: str) -> None:
-    """Raise for a device mesh: sharding the corpus over several devices
-    is not ported yet (ROADMAP item 21)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}: a device mesh is not ported yet (ROADMAP item 21, multi-device); "
-            "pass mesh=None"
-        )
 
 
 def layout_size(num_mfcc_coeffs: int) -> int:
@@ -876,18 +866,42 @@ def sharded_batched_similarity(
 ) -> Dict[str, np.ndarray]:
     """batched_similarity (or, with `quality` = (q_avail, q_dur,
     q_series, q_len, c_avail, c_dur, c_series, c_len), the detailed
-    pass) on one device, the result fetched to the host as numpy with
-    one wait. A `mesh` (the corpus sharded over devices) raises
-    NotImplementedError: ROADMAP item 21."""
-    no_mesh(mesh, "sharded_batched_similarity")
-    if quality is None:
-        out = batched_similarity(query_vec, corpus, weights, content_match,
-                                 num_mfcc_coeffs=num_mfcc_coeffs,
-                                 content_filter=content_filter, device=device)
-    else:
-        q_avail, q_dur, q_series, q_len, c_avail, c_dur, c_series, c_len = quality
-        out = batched_similarity_detailed(
-            query_vec, corpus, weights, content_match, q_avail, c_avail, np.float32(q_dur), c_dur,
-            q_series, c_series, q_len, c_len, num_mfcc_coeffs=num_mfcc_coeffs,
-            content_filter=content_filter, device=device)
-    return _to_host(out)
+    pass), the result fetched to the host as one dict of numpy [C].
+
+    Without a mesh it runs on one device (the corpus's, or `device` for
+    numpy) with one wait. With a mesh the corpus rows, `content_match`
+    and the corpus's quality arrays are split as JAX pads and shards them
+    over the "data" axis (`parallel/mesh.row_shards`), the query
+    replicated: every shard is launched on its device before any result
+    is read, and under a process group the ranks' rows are all-gathered.
+    """
+    from sonido_sonar_tpu_torch.parallel.mesh import gather_processes, on_device, row_shards
+
+    c = corpus.shape[0]
+    shards = [(_device_of(corpus, device), 0, c)] if mesh is None else row_shards(c, mesh)
+    parts = []
+    for dev, lo, hi in shards:
+        rows = slice(lo, hi)
+        with on_device(dev):
+            X = _tensor(corpus[rows], dev)
+            cm = _tensor(content_match[rows], dev)
+            if quality is None:
+                out = batched_similarity(query_vec, X, weights, cm, num_mfcc_coeffs=num_mfcc_coeffs,
+                                         content_filter=content_filter, device=dev)
+            else:
+                q_avail, q_dur, q_series, q_len, c_avail, c_dur, c_series, c_len = quality
+                out = batched_similarity_detailed(
+                    query_vec, X, weights, cm, q_avail, c_avail[rows], np.float32(q_dur),
+                    c_dur[rows], q_series, c_series[rows], q_len, c_len[rows],
+                    num_mfcc_coeffs=num_mfcc_coeffs, content_filter=content_filter, device=dev)
+            parts.append((dev, _copy_to_host_async(out)))
+    host = []
+    for dev, (part, event) in parts:
+        if event is not None:
+            event.synchronize()
+        host.append({k: v.numpy() for k, v in part.items()})
+    if mesh is not None:
+        host = [h for rank in gather_processes(host, mesh) for h in rank]
+    if len(host) == 1:
+        return host[0]
+    return {k: np.concatenate([h[k] for h in host]) for k in host[0]}

@@ -5,9 +5,11 @@ The reference's FindBestMatches loops Compare() over candidates
 (comparison.go:197-263, 1107-1151). Here each fingerprint reduces to a
 fixed-size statistics vector (the same statistics the pairwise
 comparator uses); a corpus is a [C, D] matrix, a query is a [D] vector,
-and matching is one segment-wise cosine pass + top-k on one device. A
-mesh (the corpus sharded over devices) is not ported yet: it raises
-(ROADMAP item 21).
+and matching is one segment-wise cosine pass + top-k. With a mesh the
+corpus rows are split over its entries: each shard is scored and cut to
+its top k on its device, and the shards' candidates are merged on the
+host (all-gathered first under a process group), so the ranking is the
+unsharded one, ties included.
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ from sonido_sonar_tpu_torch.fingerprint.device_compare import (
     _device_of,
     _stable_topk,
     _tensor,
-    no_mesh,
 )
 from sonido_sonar_tpu_torch.fingerprint.generator import AudioFingerprint
+from sonido_sonar_tpu_torch.parallel.mesh import gather_processes, on_device, row_shards
 from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, require_fp32_matmuls
 
 _EPS = 1e-10
@@ -131,13 +133,37 @@ def sharded_top_k_matches(
     num_mfcc_coeffs: int = 13,
     device: Device = DEFAULT_DEVICE,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Top-k most similar corpus rows on one device (the corpus's, or
-    `device` for numpy). Returns (indices [k] int32, scores [k]) as numpy,
-    equal scores lowest index first. A `mesh` raises
-    NotImplementedError (ROADMAP item 21)."""
-    no_mesh(mesh, "sharded_top_k_matches")
-    sims = segment_cosine_similarities(
-        query_vec, corpus, np.asarray(weights, dtype=np.float32), num_mfcc_coeffs, device=device)
-    scores, idx = _stable_topk(sims, min(k, sims.shape[0]))
-    out = _to_host({"index": idx.to(torch.int32), "score": scores})
-    return out["index"], out["score"]
+    """Top-k most similar corpus rows. Returns (indices [k] int32,
+    scores [k]) as numpy, equal scores lowest index first.
+
+    Without a mesh the corpus is scored on one device (the corpus's, or
+    `device` for numpy). With a mesh its rows are split as JAX pads and
+    shards them (`mesh.row_shards`), the query replicated: each shard is
+    scored and cut to its own top k on its device, every shard launched
+    before any result is read, then the candidates are merged by a stable
+    sort on the host. Under a process group every rank scores its rows,
+    the candidates are all-gathered, and every rank returns the same
+    result. The corpus is the whole [C, D] on every rank.
+    """
+    w = np.asarray(weights, dtype=np.float32)
+    c = corpus.shape[0]
+    shards = [(_device_of(corpus, device), 0, c)] if mesh is None else row_shards(c, mesh)
+    parts = []
+    for dev, lo, hi in shards:
+        with on_device(dev):
+            sims = segment_cosine_similarities(
+                query_vec, _tensor(corpus[lo:hi], dev), w, num_mfcc_coeffs, device=dev)
+            scores, idx = _stable_topk(sims, min(k, hi - lo))
+            parts.append((dev, {"index": idx.to(torch.int32) + lo, "score": scores}))
+    host = []
+    for dev, part in parts:
+        with on_device(dev):
+            host.append(_to_host(part))
+    if mesh is not None:
+        host = [h for rank in gather_processes(host, mesh) for h in rank]
+    index = np.concatenate([h["index"] for h in host])
+    score = np.concatenate([h["score"] for h in host])
+    # the candidates come in row order, so a stable sort keeps ties
+    # lowest index first, as the unsharded sort does
+    best = np.argsort(-score, kind="stable")[:min(k, c)]
+    return index[best], score[best]

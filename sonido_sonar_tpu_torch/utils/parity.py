@@ -416,6 +416,27 @@ def check_features(
     return errors, failures
 
 
+def check_sharded_step(got: dict, ref: dict, near_zero, sample_rate: int,
+                       window_size: int) -> Report:
+    """A mesh's sharded `batched_fingerprint_features` (the shards' rows
+    joined) against one unsharded step on the same device: the same
+    kernels and operations on fewer rows, so bit for bit wherever a
+    library's algorithm does not depend on the row count. A library may
+    pick another algorithm for a shard's rows (cuBLAS another GEMM for 64
+    clips than for 128: another order of float32 sums), a smaller change
+    than the two DFTs FEATURE_TOLERANCES covers, so a key that is not
+    bit-equal is held to check_features. errors[key] is each key's
+    largest |difference|; `near_zero` is called only if a key differs."""
+    errors = {k: float(np.abs(np.asarray(got[k], np.float64) - np.asarray(ref[k], np.float64))
+                       .max(initial=0.0)) for k in ref if k in got}
+    if sorted(got) == sorted(ref) and all(
+            np.asarray(got[k]).dtype == np.asarray(ref[k]).dtype
+            and np.array_equal(got[k], ref[k]) for k in ref):
+        return errors, []
+    e, failures = check_features(got, ref, near_zero(), sample_rate, window_size)
+    return {**errors, **{f"held_{k}": v for k, v in e.items()}}, failures
+
+
 def check_period_amp(amp, ref_amp) -> Report:
     """K2's period amplitude against a reference: the share of frames
     beyond AMP_RTOL must stay under AMP_MISS_SHARE."""

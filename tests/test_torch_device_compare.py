@@ -4,7 +4,7 @@ each case of tests/test_device_compare.py, held to the port's own host
 comparator (utils/parity.COMPARATOR_HOST_ATOL and the quality bounds)
 and to the JAX package's device functions on the same corpus
 (COMPARATOR_PORT_ATOL; match classes, gates and top-k indices equal).
-The two sharded cases become one test that a mesh raises. Added: the
+The two sharded cases are twinned in tests/test_torch_mesh.py. Added: the
 order of tied scores with duplicate rows (lowest index first, as JAX),
 a one-frame series (std 0, not NaN) and the TF32 guard.
 """
@@ -193,37 +193,6 @@ def test_find_best_matches_detailed_stays_on_device(monkeypatch):
     for a, b in zip(dev, host):
         assert a.similarity.confidence == pytest.approx(b.similarity.confidence, abs=QUALITY)
     _same_matches(dev, jc.find_best_matches(jquery, jcands, max_results=10), PORT)
-
-
-def test_mesh_raises():
-    """The two sharded cases of the JAX tests: a mesh (the corpus sharded
-    over devices) is ROADMAP item 21 and raises, on every entry that
-    takes one; mesh=None is the one-device path."""
-    from sonido_sonar_tpu_torch.parallel.matcher import sharded_top_k_matches
-
-    rng = np.random.default_rng(13)
-    tc, _ = _comparators()
-    query = _carry(_random_corpus(rng, 1, present=ALL))[0]
-    cands = _carry(_random_corpus(rng, 30))
-    corpus, width = T.comparator_matrix(cands)
-    qv = T.pack_comparator_stats(query, width)
-    wvec = T.content_weight_vector(query.content_type)
-    match = np.ones(len(cands), dtype=bool)
-    mesh = object()
-    for call in (
-        lambda: T.sharded_batched_similarity(qv, corpus, wvec, match, mesh=mesh, num_mfcc_coeffs=width),
-        lambda: tc.batch_compare_device(query, cands, mesh=mesh),
-        lambda: tc.find_best_matches(query, cands, mesh=mesh),
-        lambda: sharded_top_k_matches(corpus[0], corpus, mesh=mesh),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-            call()
-    plain = T.sharded_batched_similarity(qv, corpus, wvec, match, mesh=None, num_mfcc_coeffs=width,
-                                         device="cpu")
-    want = jax.device_get(J.sharded_batched_similarity(qv, corpus, wvec, match, mesh=None,
-                                                       num_mfcc_coeffs=width))
-    assert all(isinstance(v, np.ndarray) for v in plain.values())
-    _close_to_jax(plain, want, "sharded_batched_similarity")
 
 
 def test_skip_self_and_none():

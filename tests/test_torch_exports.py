@@ -4,10 +4,8 @@ For each `__init__.py` of `sonido_sonar_tpu/`, the names it imports from
 a module that the port also has must import from the port's package of
 the same path (`from sonido_sonar_tpu_torch.extractors import
 SpeechFeatureExtractor`, as `from sonido_sonar_tpu.extractors import
-SpeechFeatureExtractor`). Names of modules the port does not have yet
-(the mesh, warm-up) are ROADMAP's open items and are
-not asked for; names that a ported module
-still lacks are listed in NOT_PORTED, so the list stays exact. The JAX
+SpeechFeatureExtractor`). Names that a ported module still lacks would
+be listed in NOT_PORTED, so the list stays exact; it is empty. The JAX
 `__init__` files are read as source, not imported.
 
 Also two functions whose JAX name or signature the port once differed
@@ -39,10 +37,8 @@ JAX_INITS = sorted(p.relative_to(ROOT / JAX_PKG).parent.as_posix()
                    for p in (ROOT / JAX_PKG).rglob("__init__.py")
                    if (ROOT / PORT_PKG / p.relative_to(ROOT / JAX_PKG)).is_file())
 # (port module, name): exported by a JAX __init__, the module ported,
-# the name not yet (ROADMAP item 21)
-NOT_PORTED = {
-    ("sonido_sonar_tpu_torch.parallel.pipeline", "BatchedFingerprintPipeline"),
-}
+# the name not yet
+NOT_PORTED = set()
 
 
 def _port_module_exists(module: str) -> bool:

@@ -2,7 +2,7 @@
 JAX package's on the CPU: the host packers equal (float64 numpy in both,
 the same expressions), the segment cosines within
 utils/parity.COMPARATOR_PORT_ATOL, the top-k indices equal (ties lowest
-index first in both), and a mesh raises (ROADMAP item 21)."""
+index first in both); the sharded cases are in tests/test_torch_mesh.py."""
 
 import numpy as np
 import pytest
@@ -69,5 +69,3 @@ def test_segment_cosines_and_top_k_match_jax():
     assert idx.tolist() == [5, 9, 17, 30]
     idx, _ = T.sharded_top_k_matches(corpus[2], corpus[:3], k=10, device="cpu")
     assert idx[0] == 2 and len(idx) == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        T.sharded_top_k_matches(corpus[2], corpus, mesh=object())

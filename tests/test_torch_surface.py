@@ -18,12 +18,6 @@ PORT_PKG = ROOT / "sonido_sonar_tpu_torch"
 
 # (module relative to the package) -> public names the port does not define
 NOT_PORTED = {
-    # multi-device: ROADMAP item 21
-    "parallel/mesh.py": {"make_mesh", "data_sharding", "replicated", "shard_batch",
-                         "pad_to_multiple", "initialize_distributed", "shard_over_batch"},
-    "parallel/pipeline.py": {"BatchedFingerprintPipeline"},
-    # not ported by decision: the port compiles nothing per shape (ROADMAP section 1)
-    "warmup.py": {"cache_hit_counter", "enable_persistent_cache", "warmup"},
     # the TPU's 1024-aligned flat padding (ROADMAP "Removals")
     "ops/framing.py": {"PAD_QUANTUM", "flatten_padded_rows"},
     # the Pallas wrappers and their TPU availability gates: Hopper kernels
