@@ -12,6 +12,13 @@ the CUDA fill and backtrack kernels on a CUDA device.
 The windows own their buffers: a push copies the chunk in, so changing
 the pushed array afterwards never changes a window. `device` defaults to
 the card; the CPU runs only when the caller asks for it (`utils/device.py`).
+
+Spans (`utils/metrics.Span`, recorded while a profiler session runs):
+`monitor.measure` around each `measure` / `measure_all` call,
+`monitor.push` around each push, `monitor.host_copy` around the copy of
+a measurement batch's outputs to the host. Each push from host memory,
+sub-batch index upload and output copied adds one to
+`utils/metrics.host_syncs`.
 """
 
 from __future__ import annotations
@@ -25,7 +32,11 @@ import torch
 from sonido_sonar_tpu_torch.config.config import AlignmentConfig, FeatureConfig
 from sonido_sonar_tpu_torch.logging import get_global_logger
 from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, as_float32
-from sonido_sonar_tpu_torch.utils.metrics import get_global_metrics
+from sonido_sonar_tpu_torch.utils.metrics import Span, count_host_sync
+
+MEASURE = Span("monitor.measure")
+PUSH = Span("monitor.push")
+HOST_COPY = Span("monitor.host_copy")
 
 _METHOD_NAMES = {0: "energy_correlation", 1: "hybrid_correlation", 2: "hybrid_dtw"}
 
@@ -58,20 +69,23 @@ class _RollingWindow:
         """Append a chunk: to row `row` of a fleet buffer, or to every row
         ([N, L], or one [L] chunk for all) when row is None. Returns the
         chunk length."""
-        x = as_float32(pcm, self.device)
-        n = int(x.shape[-1])
-        if n == 0:
-            return 0
-        x = x.to(self.device)
-        buf = self._ensure()
-        dst = buf if row is None else buf[row]
-        w = self.window
-        if n >= w:
-            dst.copy_(x[..., -w:].expand(dst.shape))
-        else:
-            kept = dst[..., n:].clone()
-            dst[..., : w - n].copy_(kept)
-            dst[..., w - n:].copy_(x.expand(dst.shape[:-1] + (n,)))
+        with PUSH:
+            x = as_float32(pcm, self.device)
+            n = int(x.shape[-1])
+            if n == 0:
+                return 0
+            if not (isinstance(pcm, torch.Tensor) and pcm.is_cuda):
+                count_host_sync()   # a blocking copy from host memory
+            x = x.to(self.device)
+            buf = self._ensure()
+            dst = buf if row is None else buf[row]
+            w = self.window
+            if n >= w:
+                dst.copy_(x[..., -w:].expand(dst.shape))
+            else:
+                kept = dst[..., n:].clone()
+                dst[..., : w - n].copy_(kept)
+                dst[..., w - n:].copy_(x.expand(dst.shape[:-1] + (n,)))
         if row is None:
             self.filled += n
         else:
@@ -88,7 +102,9 @@ class _RollingWindow:
 
 def _host(out: dict) -> dict:
     """One device-to-host copy per output of a measurement batch."""
-    return {k: v.cpu() for k, v in out.items()}
+    with HOST_COPY:
+        count_host_sync(len(out))
+        return {k: v.cpu() for k, v in out.items()}
 
 
 @dataclass
@@ -141,15 +157,13 @@ class LatencyMonitor:
             return None
         from sonido_sonar_tpu_torch.ops.stats.batched_alignment import batched_align_audio
 
-        metrics = get_global_metrics()
-        with metrics.timer("latency_measure"):
+        with MEASURE:
             out = _host(batched_align_audio(
                 self._src.buf[None], self._cdn.buf[None], self._sr,
                 window_size=self.feature_config.window_size,
                 hop_size=self.feature_config.hop_size, max_lag_seconds=self.max_lag_seconds,
                 refine=refine, max_offset_samples=self._max_offset,
             ))
-        metrics.record_audio(self._window / self._sr)
         m = self._to_measurement(out, 0, self._samples_seen / self._sr, refine)
         self.history.append(m)
         return m
@@ -237,12 +251,12 @@ class FleetMonitor:
             return results
         from sonido_sonar_tpu_torch.ops.stats.batched_alignment import batched_align_audio
 
-        metrics = get_global_metrics()
         mb = min(self.measure_batch, self.n_streams)
-        with metrics.timer("fleet_measure"):
+        with MEASURE:
             for lo in range(0, idxs.size, mb):
                 sub = idxs[lo: lo + mb]
                 take = np.concatenate([sub, np.repeat(sub[:1], mb - sub.size)])
+                count_host_sync()   # a blocking copy from host memory
                 rows = torch.from_numpy(take).to(self._src.buf.device)
                 out = _host(batched_align_audio(
                     self._src.buf[rows], self._cdn.buf[rows], self._sr,
@@ -255,7 +269,6 @@ class FleetMonitor:
                                                        refine)
                     results[i] = m
                     self.history[i].append(m)
-        metrics.record_audio(idxs.size * self._window / self._sr)
         return results
 
     def current_latency(self, stream: int) -> Optional[float]:

@@ -15,6 +15,12 @@ whole batch (`ops/stats/hopper_dtw.py`, `ops/stats/hopper_backtrack.py`);
 the TPU package's power-of-two sub-batches, which kept multi-GB band
 tensors transient on a 16 GB chip, are not needed on an 80 GB card.
 
+Spans (`utils/metrics.Span`, recorded while a profiler session runs):
+`align.energy`, `align.xcorr`, `align.dtw`, `align.verify` and
+`align.refine` around the stages, `align.gate_read` and
+`align.verify_read` around the two host reads of a device flag, each of
+which adds one to `utils/metrics.host_syncs`.
+
 Medians average the two middle values, as `jnp.nanmedian` and
 `np.median` do (`masked_median`); `torch.median` would take the lower
 one and move an even-count DTW offset by one frame.
@@ -41,8 +47,24 @@ from sonido_sonar_tpu_torch.ops.stats.correlation import _peak_metrics, _take
 from sonido_sonar_tpu_torch.ops.stats.hopper_backtrack import backtrack_banded_hopper
 from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, as_float32
 from sonido_sonar_tpu_torch.ops.stats.hopper_dtw import fill_banded_hopper
+from sonido_sonar_tpu_torch.utils.metrics import Span, count_host_sync
 
 _EPS = 1e-10
+
+ENERGY = Span("align.energy")
+XCORR = Span("align.xcorr")
+GATE_READ = Span("align.gate_read")
+DTW = Span("align.dtw")
+VERIFY_READ = Span("align.verify_read")
+VERIFY = Span("align.verify")
+REFINE = Span("align.refine")
+
+
+def _any_on_host(span: Span, flags: torch.Tensor) -> bool:
+    """Whether any of `flags` is set: one host read, a wait for the card."""
+    with span:
+        count_host_sync()
+        return bool(flags.any())
 
 
 def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -281,7 +303,8 @@ def batched_hybrid_align(query_energy: torch.Tensor, reference_energy: torch.Ten
     q = as_float32(query_energy, device)
     r = as_float32(reference_energy, device).to(q.device)
     t1, t2, max_lag, min_sep = _lag_setup(q, r, max_lag, hop_size, sample_rate)
-    xc = xcorr_align_batch(q, r, max_lag, hop_size, t1, t2, min_sep=min_sep, top_k=top_k)
+    with XCORR:
+        xc = xcorr_align_batch(q, r, max_lag, hop_size, t1, t2, min_sep=min_sep, top_k=top_k)
     corr_off, corr_conf = xc["offset_samples"], xc["confidence"]
     corr_gate = xc["confidence_gate"]
     need_dtw = ~(corr_gate > 0.7)
@@ -292,9 +315,10 @@ def batched_hybrid_align(query_energy: torch.Tensor, reference_energy: torch.Ten
     }
     if top_k > 1:
         out["topk_lags"] = xc["topk_lags"]
-    if not skip_dtw_if_confident or bool(need_dtw.any()):
-        dt = dtw_align_batch(q, r, _dtw_band(dtw_band, max_lag, t1, t2), hop_size, t1, t2)
-        out.update(_hybrid_select(xc, dt, need_dtw))
+    if not skip_dtw_if_confident or _any_on_host(GATE_READ, need_dtw):
+        with DTW:
+            dt = dtw_align_batch(q, r, _dtw_band(dtw_band, max_lag, t1, t2), hop_size, t1, t2)
+            out.update(_hybrid_select(xc, dt, need_dtw))
     out["offset_seconds"] = out["offset_samples"].to(torch.float64) / float(sample_rate)
     return out
 
@@ -361,8 +385,9 @@ def batched_align_audio(query_pcm: torch.Tensor, reference_pcm: torch.Tensor, sa
 
     q = as_float32(query_pcm, device)
     r = as_float32(reference_pcm, device).to(q.device)
-    qe = short_time_energy(q, window_size, hop_size)
-    re_ = short_time_energy(r, window_size, hop_size)
+    with ENERGY:
+        qe = short_time_energy(q, window_size, hop_size)
+        re_ = short_time_energy(r, window_size, hop_size)
     max_lag = int(max_lag_seconds * sample_rate) // hop_size
     top_k = 1 if verify is False else _VERIFY_TOP_K
     out = batched_hybrid_align(qe, re_, max_lag, hop_size, sample_rate, dtw_band=dtw_band,
@@ -380,44 +405,46 @@ def batched_align_audio(query_pcm: torch.Tensor, reference_pcm: torch.Tensor, sa
         lag_f = -out["offset_samples"].to(torch.float64) / hop_size
         ov = torch.clamp_min(torch.clamp_max(t2 - lag_f, t1) - torch.clamp_min(-lag_f, 0.0), 0.0)
         need = (out["ambiguity"] > _AMBIGUITY_ONSET) | (ov < _VERIFY_OVERLAP * min(t1, t2))
-    if verify is not False and bool(need.any()):
-        glob_off, glob_peak = batched_phat_global(q, r, sample_rate,
-                                                  int(max_lag_seconds * sample_rate))
-        glob_off = torch.where(glob_peak.to(torch.float64) >= _VERIFY_FLOOR,
-                               glob_off.to(torch.float64), out["offset_seconds"])
-        cand = torch.cat([
-            -out["topk_lags"].to(torch.float64) * hop_size / sample_rate,
-            out["offset_seconds"][:, None], glob_off[:, None],
-        ], dim=1)
-        refined, peaks = batched_phat_candidates(
-            q, r, cand.to(torch.float32), sample_rate, hop_size=hop_size,
-            max_offset_samples=max_offset_samples)
-        refined = refined.to(torch.float64)
-        peaks = peaks.to(torch.float64)
-        k_star = torch.argmax(peaks, dim=1)
-        best_off = _take(refined, k_star)
-        best_val = _take(peaks, k_star)
-        hop_s = hop_size / float(sample_rate)
-        rival = torch.amax(torch.where(torch.abs(refined - best_off[:, None]) > hop_s, peaks, 0.0),
-                           dim=1)
-        margin = best_val / torch.clamp_min(rival, 1e-9)
-        decisive = (best_val >= _VERIFY_FLOOR) & (margin >= _VERIFY_MARGIN)
-        out["offset_samples"] = torch.where(
-            need, torch.round(best_off * sample_rate).to(torch.int64),
-            out["offset_samples"].to(torch.int64))
-        # a decisive PCM confirmation lifts the comb-ambiguity penalty and
-        # floors confidence at the whitened-peak evidence (_VERIFY_CONF_CAP)
-        conf = out["confidence"].to(torch.float64)
-        out["confidence"] = torch.where(
-            need & decisive,
-            torch.maximum(torch.maximum(conf, out["confidence_unpenalized"].to(torch.float64)),
-                          torch.clamp_max(best_val, _VERIFY_CONF_CAP)),
-            conf)
-        out["verified"] = need
-        out["verify_margin"] = torch.where(need, margin, 0.0)
+    if verify is not False and _any_on_host(VERIFY_READ, need):
+        with VERIFY:
+            glob_off, glob_peak = batched_phat_global(q, r, sample_rate,
+                                                      int(max_lag_seconds * sample_rate))
+            glob_off = torch.where(glob_peak.to(torch.float64) >= _VERIFY_FLOOR,
+                                   glob_off.to(torch.float64), out["offset_seconds"])
+            cand = torch.cat([
+                -out["topk_lags"].to(torch.float64) * hop_size / sample_rate,
+                out["offset_seconds"][:, None], glob_off[:, None],
+            ], dim=1)
+            refined, peaks = batched_phat_candidates(
+                q, r, cand.to(torch.float32), sample_rate, hop_size=hop_size,
+                max_offset_samples=max_offset_samples)
+            refined = refined.to(torch.float64)
+            peaks = peaks.to(torch.float64)
+            k_star = torch.argmax(peaks, dim=1)
+            best_off = _take(refined, k_star)
+            best_val = _take(peaks, k_star)
+            hop_s = hop_size / float(sample_rate)
+            rival = torch.amax(torch.where(torch.abs(refined - best_off[:, None]) > hop_s, peaks, 0.0),
+                               dim=1)
+            margin = best_val / torch.clamp_min(rival, 1e-9)
+            decisive = (best_val >= _VERIFY_FLOOR) & (margin >= _VERIFY_MARGIN)
+            out["offset_samples"] = torch.where(
+                need, torch.round(best_off * sample_rate).to(torch.int64),
+                out["offset_samples"].to(torch.int64))
+            # a decisive PCM confirmation lifts the comb-ambiguity penalty and
+            # floors confidence at the whitened-peak evidence (_VERIFY_CONF_CAP)
+            conf = out["confidence"].to(torch.float64)
+            out["confidence"] = torch.where(
+                need & decisive,
+                torch.maximum(torch.maximum(conf, out["confidence_unpenalized"].to(torch.float64)),
+                              torch.clamp_max(best_val, _VERIFY_CONF_CAP)),
+                conf)
+            out["verified"] = need
+            out["verify_margin"] = torch.where(need, margin, 0.0)
     out["offset_seconds"] = out["offset_samples"].to(torch.float64) / float(sample_rate)
     if refine:
-        out["offset_seconds_refined"] = batched_refine_offsets(
-            q, r, out["offset_seconds"].to(torch.float32), sample_rate, hop_size=hop_size,
-            max_offset_samples=max_offset_samples)
+        with REFINE:
+            out["offset_seconds_refined"] = batched_refine_offsets(
+                q, r, out["offset_seconds"].to(torch.float32), sample_rate, hop_size=hop_size,
+                max_offset_samples=max_offset_samples)
     return out

@@ -65,6 +65,7 @@ from sonido_sonar_tpu_torch.utils.device import (
     as_float32,
     require_fp32_matmuls,
 )
+from sonido_sonar_tpu_torch.utils.metrics import Span
 
 _EPS = 1e-10
 FEAT_EPILOGUE_ENV = "SONIDO_ENABLE_FEAT_EPILOGUE"
@@ -531,6 +532,14 @@ def batched_phat_global(
     return offsets, peaks
 
 
+# run_stream's spans (utils/metrics.Span, recorded while a profiler
+# session runs): none stays open across its yield
+STAGE = Span("stream.stage")
+UPLOAD = Span("stream.upload")
+STEP = Span("stream.step")
+WAIT = Span("stream.wait")
+
+
 def run_stream(
     pipeline: Callable,
     batches: Iterable,
@@ -557,19 +566,23 @@ def run_stream(
     def drained():
         out, done, _staged = inflight.popleft()
         if done is not None:
-            done.synchronize()
+            with WAIT:
+                done.synchronize()
         return out
 
     for batch in batches:
         staged = None
         if dev.type == "cuda" and not isinstance(batch, torch.Tensor):
-            host = torch.from_numpy(np.asarray(batch, dtype=np.float32))
-            staged = torch.empty(host.shape, dtype=torch.float32, pin_memory=True)
-            staged.copy_(host)  # torch's copy runs on every host core
-            x = staged.to(dev, non_blocking=True)
+            with STAGE:
+                host = torch.from_numpy(np.asarray(batch, dtype=np.float32))
+                staged = torch.empty(host.shape, dtype=torch.float32, pin_memory=True)
+                staged.copy_(host)  # torch's copy runs on every host core
+            with UPLOAD:
+                x = staged.to(dev, non_blocking=True)
         else:
             x = as_float32(batch, dev)
-        out = pipeline(x)
+        with STEP:
+            out = pipeline(x)
         done = None
         if x.is_cuda:
             done = torch.cuda.Event()

@@ -1,5 +1,5 @@
 """Utilities: fingerprint serialization, state conversion from the JAX
-package, parity checks and timing metrics."""
+package, parity checks, spans and stage timers."""
 
 from sonido_sonar_tpu_torch.utils.serialize import (  # noqa: F401
     fingerprint_to_json,
@@ -8,6 +8,5 @@ from sonido_sonar_tpu_torch.utils.serialize import (  # noqa: F401
 )
 from sonido_sonar_tpu_torch.utils.metrics import (  # noqa: F401
     Metrics,
-    get_global_metrics,
     profiler_trace,
 )

@@ -1,11 +1,27 @@
-"""Lightweight observability: counters and stage timers.
+"""Spans and counters inside the port, and the profiler trace they land in.
 
-Counterpart of `sonido_sonar_tpu/utils/metrics.py` (`Metrics.count`,
-`timer`, `record_audio`, `snapshot`, `reset`, `get_global_metrics`).
-`timer(block_on=...)` takes a tensor or a device: on a CUDA device the
-stage ends with `torch.cuda.synchronize`, so device work counts.
-`profiler_trace(log_dir)` is JAX's `jax.profiler` trace context on
-`torch.profiler`.
+A `Span` is declared once, where its work happens, as a module-level
+object (`PUSH = Span("monitor.push")` in `monitor.py`, used as
+`with PUSH:`), as the kernel wrappers keep their `.launches`. It is on
+exactly while a `torch.profiler` session records: then it enters
+`torch.profiler.record_function(name)`, so it lands in the profiler's
+Chrome trace as a `user_annotation` on the kernels' clock, nested under
+the span that caused it, and it adds to its integer totals `count` and
+`total_ns` (host nanoseconds). Off, entering and leaving it checks one
+flag each and does nothing else. Under a `torch.profiler.schedule` the
+session records only in its active steps, so the totals cover the
+traced calls alone. No span stays open across a `yield`.
+
+`host_syncs` counts, always, the sites on the monitor's path where the
+host waits for the card: a push or an index upload from host memory, a
+read of a device flag, a copy of an output to the host. It counts the
+site, not the device, so a CPU run counts what a card run does.
+
+`Metrics` times an entry point's stages on the host clock with the same
+spans, always (`examples/cdn_latency.py` reports them); `profiler_trace`
+writes the trace the spans are read in. Counterpart of
+`sonido_sonar_tpu/utils/metrics.py` (`Metrics.timer`, `snapshot`,
+`profiler_trace`).
 """
 
 from __future__ import annotations
@@ -14,29 +30,83 @@ import contextlib
 import os
 import threading
 import time
-from collections import defaultdict
 from typing import Dict, Iterator
 
 import torch
+import torch.autograd.profiler as _profiler
+
+host_syncs = 0
+
+
+def count_host_sync(n: int = 1) -> None:
+    """Add `n` sites where the host waits for the card to `host_syncs`."""
+    global host_syncs
+    host_syncs += n
+
+
+class Span:
+    """A named interval of the port's work; see the module docstring."""
+
+    __slots__ = ("name", "count", "total_ns", "_open", "_local", "_lock")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.count = 0
+        self.total_ns = 0
+        self._open = 0                  # entries not yet left, all threads
+        self._local = threading.local()
+        self._lock = threading.Lock()
+
+    def __enter__(self) -> "Span":
+        if _profiler._is_profiler_enabled:
+            self._begin(annotate=True)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._open:
+            self._end()
+
+    def _begin(self, annotate: bool) -> None:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        rf = None
+        if annotate:
+            rf = torch.profiler.record_function(self.name)
+            rf.__enter__()
+        stack.append((rf, time.perf_counter_ns()))
+        with self._lock:
+            self._open += 1
+
+    def _end(self) -> None:
+        stack = getattr(self._local, "stack", None)
+        if not stack:                   # entered while the profiler was off
+            return
+        rf, t0 = stack.pop()
+        elapsed = time.perf_counter_ns() - t0
+        with self._lock:
+            self._open -= 1
+            self.count += 1
+            self.total_ns += elapsed
+        if rf is not None:
+            rf.__exit__(None, None, None)
 
 
 class Metrics:
-    """Thread-safe counters + timing accumulators."""
+    """Stage timers of one entry point: a span per stage, timed whether or
+    not a profiler records (and annotated in its trace when one does)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
-        self._counters: Dict[str, float] = defaultdict(float)
-        self._timings: Dict[str, list] = defaultdict(list)
-
-    def count(self, name: str, value: float = 1.0) -> None:
-        with self._lock:
-            self._counters[name] += value
+        self._spans: Dict[str, Span] = {}
 
     @contextlib.contextmanager
     def timer(self, stage: str, block_on=None) -> Iterator[None]:
         """Wall-clock a stage; `block_on` (a tensor or a device) on CUDA
         makes the stage include device completion."""
-        t0 = time.perf_counter()
+        with self._lock:
+            span = self._spans.setdefault(stage, Span(stage))
+        span._begin(annotate=_profiler._is_profiler_enabled)
         try:
             yield
         finally:
@@ -44,42 +114,14 @@ class Metrics:
                 dev = block_on.device if isinstance(block_on, torch.Tensor) else torch.device(block_on)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
-            with self._lock:
-                self._timings[stage].append(time.perf_counter() - t0)
-
-    def record_audio(self, seconds: float, frames: int = 0) -> None:
-        self.count("audio_seconds", seconds)
-        self.count("frames", frames)
+            span._end()
 
     def snapshot(self) -> dict:
         with self._lock:
-            out = {"counters": dict(self._counters), "stages": {}}
-            for stage, ts in self._timings.items():
-                total = sum(ts)
-                out["stages"][stage] = {
-                    "calls": len(ts),
-                    "total_s": total,
-                    "mean_ms": total / len(ts) * 1000 if ts else 0.0,
-                }
-            audio_s = self._counters.get("audio_seconds", 0.0)
-            wall = sum(sum(ts) for ts in self._timings.values())
-            if wall > 0 and audio_s > 0:
-                out["throughput_audio_hours_per_hour"] = audio_s / wall
-            if wall > 0 and self._counters.get("frames"):
-                out["frames_per_sec"] = self._counters["frames"] / wall
-            return out
-
-    def reset(self) -> None:
-        with self._lock:
-            self._counters.clear()
-            self._timings.clear()
-
-
-_global = Metrics()
-
-
-def get_global_metrics() -> Metrics:
-    return _global
+            spans = list(self._spans.values())
+        return {"stages": {s.name: {"calls": s.count, "total_s": s.total_ns * 1e-9,
+                                    "mean_ms": s.total_ns * 1e-6 / s.count if s.count else 0.0}
+                           for s in spans}}
 
 
 # profiler_trace on a card: the one-element kernels of its warm-up step,
@@ -91,9 +133,9 @@ TRACE_MARGIN_S = 0.1
 
 @contextlib.contextmanager
 def profiler_trace(log_dir: str) -> Iterator[None]:
-    """torch.profiler trace context: the host's operators and, where a
-    card is present, its kernels, written as a Chrome trace
-    (`<host>_<pid>.<ns>.pt.trace.json`) into `log_dir` on exit.
+    """torch.profiler trace context: the host's operators and the port's
+    spans and, where a card is present, its kernels, written as a Chrome
+    trace (`<host>_<pid>.<ns>.pt.trace.json`) into `log_dir` on exit.
 
     The session runs under a `torch.profiler.schedule` of one warm-up
     step, whose records the schedule drops, and one recorded step that

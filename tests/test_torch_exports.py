@@ -5,7 +5,8 @@ a module that the port also has must import from the port's package of
 the same path (`from sonido_sonar_tpu_torch.extractors import
 SpeechFeatureExtractor`, as `from sonido_sonar_tpu.extractors import
 SpeechFeatureExtractor`). Names that a ported module still lacks would
-be listed in NOT_PORTED, so the list stays exact; it is empty. The JAX
+be listed in NOT_PORTED, so the list stays exact; it is empty. Names the
+port dropped on purpose are listed in DROPPED, with the reason. The JAX
 `__init__` files are read as source, not imported.
 
 Also two functions whose JAX name or signature the port once differed
@@ -39,6 +40,10 @@ JAX_INITS = sorted(p.relative_to(ROOT / JAX_PKG).parent.as_posix()
 # (port module, name): exported by a JAX __init__, the module ported,
 # the name not yet
 NOT_PORTED = set()
+# (port module, name): exported by a JAX __init__, left out of the port on
+# purpose. The port's spans and counters are module-level objects where
+# the work happens (utils/metrics.py); a process-global Metrics is gone.
+DROPPED = {("sonido_sonar_tpu_torch.utils.metrics", "get_global_metrics")}
 
 
 def _port_module_exists(module: str) -> bool:
@@ -74,7 +79,7 @@ def test_jax_exports_import_from_the_port(package):
         elif getattr(port_pkg, name, None) is not getattr(mod, name):
             missing.append(name)
     assert not missing, f"{port_pkg.__name__} does not export {missing}"
-    assert lacking == NOT_PORTED & set(_jax_exports(package))
+    assert lacking == (NOT_PORTED | DROPPED) & set(_jax_exports(package))
 
 
 def test_the_reported_imports_work():

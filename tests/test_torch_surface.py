@@ -32,6 +32,9 @@ NOT_PORTED = {
                                 "pallas_dtw_scan_available"},
     "ops/stats/pallas_backtrack.py": {"backtrack_banded_pallas", "backtrack_banded_pallas_batch",
                                       "backtrack_banded_pallas_rev", "pallas_backtrack_available"},
+    # the process-global Metrics: the port's spans and counters are
+    # module-level objects where the work happens (utils/metrics.py)
+    "utils/metrics.py": {"get_global_metrics"},
 }
 
 # Pallas module -> (Hopper wrapper module, the wrappers it must define)
