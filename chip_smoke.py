@@ -22,8 +22,10 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
      frames off 8-byte alignment), K1 alone at W = 64 and 128, and K1 and
      K2 on a 1-D row
   6. the main path, batched_fingerprint_features, at B=128 x 30 s,
-     44.1 kHz, window 1024, hop 256: shapes, finite values, kernel launch
-     counts, step time and audio-hours per wall-hour
+     44.1 kHz, window 1024, hop 256: shapes, finite values, K1, K2 and
+     K9 launched once each, the contrast bit-equal to spectral_contrast
+     of K1's magnitudes and within 1e-3 dB of the sorts' (K9's plain
+     version), step time and audio-hours per wall-hour
   7. the main path at [2, 44100] on the card against the CPU, and at
      16 kHz ([2, 16000]): ZCR by the exact gate (every frame away from
      near-zero samples bit-equal)
@@ -52,8 +54,8 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
      step time and audio-hours per wall-hour; then one batch without
      metadata (the acoustic detector routes; logged, not gated)
  13. the music program (batched_music_extractor_features) at B=128 x 30 s:
-     K1 launched twice and K4 three times, shapes, finite values, step
-     time; batched_speech_extractor_features at the same shape
+     K1 launched twice, K4 three times and K9 once (contrast), shapes,
+     finite values, step time; batched_speech_extractor_features at the same shape
  14. the generator (both routings) and the music program at [2, 44100]
      on the card against the CPU, with utils/parity's gates; the music
      program also at 16 kHz ([2, 16000], ZCR by the exact gate)
@@ -142,14 +144,15 @@ the card:
      own magnitudes (utils/parity.FEAT_SAME_MAGNITUDES), and at the small
      shapes against the whole plain version (across the two DFTs)
  24. the main path in its feature-epilogue configuration
-     (SONIDO_ENABLE_FEAT_EPILOGUE=1) at B=128 x 30 s: K10 launched, the
+     (SONIDO_ENABLE_FEAT_EPILOGUE=1) at B=128 x 30 s: K1, K10, K2 and K9
+     launched once each, the
      default configuration's keys, shapes and dtypes, finite values,
      agreement with the default configuration's outputs; both
      configurations' step times in turns; the configuration at
      [2, 44100] on the card against the CPU
  25. K9 (contrast band means) at the main path's magnitudes
-     [128, 5164, 513] with the 6 contrast edges, driven once as its
-     public op, then against its plain version (the contrast sorts), and
+     [128, 5164, 513] with the 6 contrast edges against its plain
+     version (the contrast sorts), and
      the tie and zero case exactly; two launches bit-equal; then at full
      size ties at the k-th key, zero and subnormal powers, one constant
      band, degenerate bands, the 22.05 kHz edges and W = 2048 (the lane
@@ -222,7 +225,7 @@ entry points, from WAV files in a temporary directory):
 
 Phases 37 and 38 run last (the music-analysis ops, then the op surface):
  37. the music program with enable_cqt and enable_hpcp at B=128 x 30 s
-     on phase 13's clips: K1 launched twice and K4 three times, the
+     on phase 13's clips: K1 launched twice, K4 three times, K9 once, the
      schema's shapes with chroma_cqt [128, 2568, 12] and hpcp [128,
      5164, 12], unit-sum CQT and unit-energy HPCP rows, steps in turns
      with the options-off program, chroma_cqt and hpcp_from_magnitude
@@ -297,7 +300,9 @@ time, the plain version's, its bound (the larger of the bytes it must move
 over 3.35 TB/s and its operations over 67 TFLOP/s, the H100's fp32 rate
 outside the tensor cores, from this run's shapes) and, where one PyTorch
 call computes the same function, that call's time; the DTW fill and K8
-also carry their time at B = 32, the fleet's sub-batch (`ms_b32`). The
+also carry their time at B = 32, the fleet's sub-batch (`ms_b32`), and K9
+its launches on the main path (phase 6) and that path's contrast gap to
+the sorts in dB (`contrast_gap_db`). The
 last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Inputs are harmonic tones plus noise (utils/parity.synth_pcm and
@@ -338,6 +343,7 @@ OUTPUT_KEYS = (
 
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+CONTRAST_GAP_DB = 1e-3      # the main path's contrast against the sorts' (the tests' atol)
 SMEM_ROUND_TRIP = 30        # SM cycles of a dependent shared-memory load (an assumption)
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 
@@ -1241,13 +1247,13 @@ def run_features(card: str, dev: torch.device, full: torch.Tensor, small: torch.
     os.environ[pipeline.FEAT_EPILOGUE_ENV] = "1"
     try:
         k1.launches = k1.feat_launches = 0
-        hopper_yin.yin_pitch_hopper.launches = 0
+        hopper_yin.yin_pitch_hopper.launches = k9.launches = 0
         out = pipeline.batched_fingerprint_features(full, SR, WINDOW, HOP)
         torch.cuda.synchronize()
         res["feat_launches"] = {"K1": k1.launches, "K10": k1.feat_launches,
-                                "K2": hopper_yin.yin_pitch_hopper.launches}
+                                "K2": hopper_yin.yin_pitch_hopper.launches, "K9": k9.launches}
         log(f"feature-epilogue main path launches: {res['feat_launches']}")
-        if res["feat_launches"] != {"K1": 1, "K10": 1, "K2": 1}:
+        if res["feat_launches"] != {"K1": 1, "K10": 1, "K2": 1, "K9": 1}:
             raise AssertionError(f"the feature-epilogue configuration launched {res['feat_launches']}")
         if list(out) != list(default):
             raise AssertionError(f"keys {list(out)}, expected {list(default)}")
@@ -1288,13 +1294,11 @@ def run_features(card: str, dev: torch.device, full: torch.Tensor, small: torch.
         del os.environ[pipeline.FEAT_EPILOGUE_ENV]
     torch.cuda.empty_cache()
 
-    # phase 25: K9 at the main path's magnitudes, its op driven once, then held
+    # phase 25: K9 at the main path's magnitudes, held to its plain version
     mag = k1(full, WINDOW, HOP, pre_emph=PRE_EMPH)[0]
     edges = contrast_band_edges(6, mag.shape[-1], SR)
-    k9.launches = 0
     peak, valley = k9(mag, edges)
     torch.cuda.synchronize()
-    res["K9_launches"] = k9.launches
     ppeak, pvalley = k9_plain(mag, edges)
     e9 = require(parity.check_band_means(np32(peak), np32(valley), np32(ppeak), np32(pvalley)),
                  f"K9 vs plain, {tuple(mag.shape)}, edges {edges}")
@@ -2280,7 +2284,8 @@ def run_music_analysis(card: str, dev: torch.device) -> dict:
         torch.cuda.reset_peak_memory_stats()
         out, launches, _ = counted(fn)
         res[f"peak_mib_{label}"] = torch.cuda.max_memory_allocated() / 2**20
-        if launches["K1"] != 2 or launches["K4"] != 3 or sum(launches.values()) != 5:
+        if launches["K1"] != 2 or launches["K4"] != 3 or launches["K9"] != 1 \
+                or sum(launches.values()) != 6:
             raise AssertionError(f"phase 37: the music program ({label}) launched {launches}")
         res[f"launches_{label}"] = {k: v for k, v in launches.items() if v}
     schema = {**music_schema(FULL_B, n_full), "chroma_cqt": (FULL_B, t_cqt, 12),
@@ -3016,7 +3021,7 @@ def main() -> int:
     from sonido_sonar_tpu_torch.config.config import FeatureConfig, FingerprintConfig
     from sonido_sonar_tpu_torch.fingerprint import FingerprintGenerator
     from sonido_sonar_tpu_torch.io.audio import AudioData, AudioMetadata
-    from sonido_sonar_tpu_torch.ops import hopper_onsets, hopper_stft, hopper_yin
+    from sonido_sonar_tpu_torch.ops import hopper_contrast, hopper_onsets, hopper_stft, hopper_yin
     from sonido_sonar_tpu_torch.ops import temporal as T
     from sonido_sonar_tpu_torch.ops.filters import dc_removal, pre_emphasis_for_content
     from sonido_sonar_tpu_torch.ops.stft import spectral_flux
@@ -3051,7 +3056,7 @@ def main() -> int:
     log(f"K4: {regs.value} registers, {local.value} B of local memory (spills), {smem.value} B of "
         f"shared memory per block, {blocks.value} blocks per SM [{card}]")
     from sonido_sonar_tpu_torch.ops.hopper_contrast import band_plan
-    from sonido_sonar_tpu_torch.ops.spectral import contrast_band_edges
+    from sonido_sonar_tpu_torch.ops.spectral import contrast_band_edges, spectral_contrast
     for what, keys, f_bins in (
         ("lane plan", band_plan(contrast_band_edges(6, WINDOW // 2 + 1, SR), WINDOW // 2 + 1)[1],
          WINDOW // 2 + 1),
@@ -3077,6 +3082,7 @@ def main() -> int:
     k2 = hopper_yin.yin_pitch_hopper
     k2_plain = hopper_yin.yin_pitch_plain
     k2_args = (PITCH_WINDOW, PITCH_HOP, SR, 80.0, 1000.0, 0.15, PRE_EMPH)
+    k9 = hopper_contrast.band_select_means_hopper
 
     def hold_k1(x, w, hop, pre):
         near = parity.near_zero_frames(np32(x), w, hop, pre)
@@ -3130,14 +3136,13 @@ def main() -> int:
 
     t_frames = (FULL_SECONDS * SR - WINDOW) // HOP + 1        # phase 6
     t_pitch = (FULL_SECONDS * SR - PITCH_WINDOW) // PITCH_HOP + 1
-    k1.launches = 0
-    k2.launches = 0
+    k1.launches = k2.launches = k9.launches = 0
     out = batched_fingerprint_features(full, sample_rate=SR, window_size=WINDOW, hop_size=HOP)
     torch.cuda.synchronize()
-    launches = {"K1": k1.launches, "K2": k2.launches}
+    launches = {"K1": k1.launches, "K2": k2.launches, "K9": k9.launches}
     log(f"main path launches: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    if launches != {"K1": 1, "K2": 1, "K9": 1}:
+        raise AssertionError(f"the main path launched {launches}, expected K1 1, K2 1, K9 1")
     expect = {"mfcc": (t_frames, 13), "chroma": (t_frames, 12),
               "spectral_contrast": (t_frames, 6), "energy_variance": (),
               "pitch": (t_pitch,), "pitch_confidence": (t_pitch,), "voicing": (t_pitch,)}
@@ -3152,7 +3157,20 @@ def main() -> int:
     voiced = float((out["pitch"] > 0).float().mean())
     log(f"main path outputs: {len(out)} keys, shapes and dtypes as expected, all finite; "
         f"voiced share {voiced:.3f}")
-    del out
+    # its contrast is K9's on its own magnitudes, and near the sorts' (the plain version)
+    mag = k1(full, WINDOW, HOP, pre_emph=PRE_EMPH)[0]
+    if not torch.equal(spectral_contrast(mag, SR, 6), out["spectral_contrast"]):
+        raise AssertionError("the main path's contrast is not spectral_contrast of its magnitudes")
+    peak, valley = hopper_contrast.band_select_means_plain(mag, contrast_band_edges(6, mag.shape[-1], SR))
+    sorted_db = torch.where(peak > 0, 10.0 * torch.log10(peak / torch.clamp_min(valley, 1e-10)), 0.0)
+    contrast_gap_db = float((out["spectral_contrast"] - sorted_db).abs().max())
+    log(f"main path contrast: K9 against the sorts, largest gap {contrast_gap_db:.6g} dB "
+        f"over {tuple(sorted_db.shape)}")
+    if contrast_gap_db > CONTRAST_GAP_DB:
+        raise AssertionError(f"main path contrast {contrast_gap_db} dB from the sorts' "
+                             f"(limit {CONTRAST_GAP_DB})")
+    del out, mag, peak, valley, sorted_db
+    torch.cuda.empty_cache()
     step_s = []
     for _ in range(TIMED_STEPS):
         torch.cuda.synchronize()
@@ -3364,13 +3382,13 @@ def main() -> int:
     def music_step():                                         # phase 13
         return batched_music_extractor_features(clips, SR, WINDOW, HOP)
 
-    k1.launches = k4.launches = 0
+    k1.launches = k4.launches = k9.launches = 0
     mus = music_step()
     torch.cuda.synchronize()
-    music_launches = {"K1": k1.launches, "K4": k4.launches}
+    music_launches = {"K1": k1.launches, "K4": k4.launches, "K9": k9.launches}
     log(f"music program launches: {music_launches}")
-    if music_launches != {"K1": 2, "K4": 3}:
-        raise AssertionError(f"the music path launched {music_launches}, expected K1 2, K4 3")
+    if music_launches != {"K1": 2, "K4": 3, "K9": 1}:
+        raise AssertionError(f"the music path launched {music_launches}, expected K1 2, K4 3, K9 1")
     check_surface("music program", mus, music_schema(FULL_B, n_full), MUSIC_INTS)
     log(f"[music program] onsets per clip {float(mus['onset_mask'].sum(-1).float().mean()):.1f}, "
         f"tempo {sorted(set(mus['tempo_bpm'].tolist()))}")
@@ -3505,7 +3523,8 @@ def main() -> int:
         {"name": "K9 contrast_band_means", "route": "cuda",
          "source": "sonido_sonar_tpu_torch/csrc/contrast.cu",
          "replaces": "sonido_sonar_tpu/ops/pallas_contrast.py:140",
-         "launches": fslice["K9_launches"], "max_abs_err": fslice["K9_err"],
+         "launches": launches["K9"], "max_abs_err": fslice["K9_err"],
+         "contrast_gap_db": contrast_gap_db,
          "ms": fslice["K9_times"][0], "plain_ms": fslice["K9_times"][1], "key": "K9"},
         {"name": "K10 stft_features", "route": "cuda",
          "source": "sonido_sonar_tpu_torch/csrc/stft.cu",

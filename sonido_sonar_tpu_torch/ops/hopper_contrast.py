@@ -5,10 +5,10 @@ Counterpart of `sonido_sonar_tpu/ops/pallas_contrast.py`
 (`band_select_means_pallas`); the kernel is `csrc/contrast.cu`. Per frame
 and band it gives the means of the top and bottom k = max(int(0.2 *
 width), 1) powers (spectral_contrast.go:71-137), the two means
-`ops/spectral.spectral_contrast` takes from its sorts. Like the JAX
-package, nothing wires it into `spectral_contrast`: it is a public op,
-held to its plain version on the card by `chip_smoke.py` and timed there
-against the contrast sorts.
+`ops/spectral.spectral_contrast` floors and turns into dB: every caller
+of `spectral_contrast` takes its band means from this wrapper (where the
+JAX package sorts). `chip_smoke.py` holds the kernel to its plain
+version on the card and times it there against the sorts.
 
 For a CPU tensor the wrapper runs the plain version (one `torch.sort`
 per band); for a CUDA tensor it launches the kernel or raises — nothing

@@ -19,6 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sonido_sonar_tpu_torch.ops import hopper_contrast
 from sonido_sonar_tpu_torch.ops.tables import device_table
 
 _EPS = 1e-10
@@ -136,29 +137,22 @@ def contrast_band_edges(
 def spectral_contrast(
     magnitude: torch.Tensor, sample_rate: int, num_bands: int = 6
 ) -> torch.Tensor:
-    """Per-band peak-vs-valley contrast in dB, [..., F] -> [..., num_bands].
+    """Per-band peak-vs-valley contrast in dB, float32 [..., F] -> float32
+    [..., num_bands]; any other dtype raises.
 
-    Per band: sort the power; valley = mean of the bottom k, peak = mean
-    of the top k, k = max(int(0.2 * width), 1); the valley is floored at
-    1e-10 and contrast is 0 where the peak is <= 0
-    (spectral_contrast.go:71-137).
+    Per band: peak = mean of the top k powers, valley = mean of the bottom
+    k, k = max(int(0.2 * width), 1), taken by K9
+    (`ops/hopper_contrast.band_select_means_hopper`: the kernel on a CUDA
+    tensor, one sort per band on a CPU tensor); the valley is floored at
+    1e-10 and contrast is 0 where the peak is <= 0, so a degenerate band
+    gives 0 (spectral_contrast.go:71-137).
     """
-    n_bins = magnitude.shape[-1]
-    edges = contrast_band_edges(num_bands, n_bins, sample_rate)
-    power = magnitude * magnitude
-    outs = []
-    for b in range(num_bands):
-        lo, hi = edges[b], min(edges[b + 1], n_bins)
-        if lo >= hi:
-            outs.append(magnitude.new_zeros(magnitude.shape[:-1]))
-            continue
-        width = hi - lo
-        k = max(int(0.2 * width), 1)
-        ordered = torch.sort(power[..., lo:hi], dim=-1).values
-        valley = torch.clamp_min(torch.mean(ordered[..., :k], dim=-1), _EPS)
-        peak = torch.mean(ordered[..., width - k:], dim=-1)
-        outs.append(torch.where(peak > 0, 10.0 * torch.log10(peak / valley), 0.0))
-    return torch.stack(outs, dim=-1)
+    if magnitude.dtype != torch.float32:
+        raise ValueError(f"spectral_contrast needs float32 magnitudes, got {magnitude.dtype}")
+    edges = contrast_band_edges(num_bands, magnitude.shape[-1], sample_rate)
+    peak, valley = hopper_contrast.band_select_means_hopper(magnitude.contiguous(), edges)
+    valley = torch.clamp_min(valley, _EPS)
+    return torch.where(peak > 0, 10.0 * torch.log10(peak / valley), 0.0)
 
 
 def zero_crossings(frames: torch.Tensor) -> torch.Tensor:
@@ -329,7 +323,8 @@ def spectral_contrast_custom_bands(
 ) -> torch.Tensor:
     """ComputeWithCustomBands (spectral_contrast.go:104-137): contrast
     over caller-provided band edge frequencies, each band's power sorted
-    (K9 is not used here, as JAX uses no Pallas kernel here)."""
+    (no cell runs it, so K9 is not used here; JAX uses no Pallas kernel
+    here either)."""
     n_bins = magnitude.shape[-1]
     nyquist = sample_rate / 2.0
     edges = [

@@ -1,5 +1,6 @@
 """K9, the port's sort-free contrast band selection, held to the JAX
-package on the CPU.
+package on the CPU, and `ops/spectral.spectral_contrast`, which takes its
+band means from K9's wrapper.
 
 On a CPU tensor the wrapper runs its plain version (one sort per band);
 these tests hold it to JAX's Pallas kernel in interpret mode (as
@@ -20,7 +21,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 import sonido_sonar_tpu.ops.pallas_contrast as jpc  # noqa: E402
 from sonido_sonar_tpu.ops.spectral import contrast_band_edges as j_edges  # noqa: E402
 from sonido_sonar_tpu_torch.ops import hopper_contrast  # noqa: E402
-from sonido_sonar_tpu_torch.ops.spectral import contrast_band_edges  # noqa: E402
+from sonido_sonar_tpu_torch.ops.spectral import contrast_band_edges, spectral_contrast  # noqa: E402
 from sonido_sonar_tpu_torch.utils import parity  # noqa: E402
 
 torch.set_num_threads(1)
@@ -240,3 +241,116 @@ def test_band_plan_covers_each_band_once(edges, f, fits):
         assert (lanes[mine, 2] == g).all() and gmax >= g
         held = np.concatenate([lanes[i, 1] + g * np.arange(lanes[i, 3]) for i in mine])
         assert sorted(held.tolist()) == list(range(lo, hi))
+
+
+# -- spectral_contrast: its band means from K9's wrapper ----------------------
+
+def _contrast_sort_loop(magnitude, sample_rate, num_bands):
+    """spectral_contrast as one sort per band (its form before it took its
+    band means from K9), kept to hold the CPU path to its bits."""
+    n_bins = magnitude.shape[-1]
+    edges = contrast_band_edges(num_bands, n_bins, sample_rate)
+    power = magnitude * magnitude
+    outs = []
+    for b in range(num_bands):
+        lo, hi = edges[b], min(edges[b + 1], n_bins)
+        if lo >= hi:
+            outs.append(magnitude.new_zeros(magnitude.shape[:-1]))
+            continue
+        width = hi - lo
+        k = max(int(0.2 * width), 1)
+        ordered = torch.sort(power[..., lo:hi], dim=-1).values
+        valley = torch.clamp_min(torch.mean(ordered[..., :k], dim=-1), 1e-10)
+        peak = torch.mean(ordered[..., width - k:], dim=-1)
+        outs.append(torch.where(peak > 0, 10.0 * torch.log10(peak / valley), 0.0))
+    return torch.stack(outs, dim=-1)
+
+
+def _contrast_magnitudes(kind, f, seed):
+    """[3, 40, f] float32 magnitudes; "hazards": tied powers (few levels),
+    all-zero frames and one band's bins all zero."""
+    mag = _mag((3, 40, f), seed)
+    if kind == "hazards":
+        mag = np.round(mag * 2.0).astype(np.float32) / 2.0
+        mag[0, :7] = 0.0
+        mag[1, :, : max(f // 4, 1)] = 0.0
+    return mag
+
+
+@pytest.mark.parametrize(
+    "kind,f,sr,bands",
+    [
+        ("random", 513, 44100, 6),  # the backfill's slice
+        ("random", 513, 16000, 6),
+        ("random", 513, 22050, 6),
+        ("random", 513, 44100, 4),
+        ("random", 513, 44100, 8),
+        ("random", 1025, 44100, 6),
+        ("hazards", 513, 44100, 6),
+        ("hazards", 7, 16000, 8),  # band 7 starts past the last bin: degenerate
+    ],
+)
+def test_spectral_contrast_cpu_bits_equal_the_sort_loop(kind, f, sr, bands):
+    """On a CPU tensor the wrapper sorts, so spectral_contrast gives the
+    bits of the per-band sort loop, degenerate bands (contrast 0), zero
+    frames and ties included."""
+    mag = torch.from_numpy(_contrast_magnitudes(kind, f, seed=f + sr + bands))
+    edges = contrast_band_edges(bands, f, sr)
+    degenerate = [b for b in range(bands) if edges[b] >= min(edges[b + 1], f)]
+    assert bool(degenerate) == (f == 7)
+    got = spectral_contrast(mag, sr, bands)
+    want = _contrast_sort_loop(mag, sr, bands)
+    assert got.shape == mag.shape[:-1] + (bands,) and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not got[..., degenerate].any()
+    if kind == "hazards" and f > 7:
+        assert not got[0, :7].any()
+
+
+def test_spectral_contrast_routes_through_the_k9_wrapper(monkeypatch):
+    """One wrapper call per spectral_contrast call, on a contiguous copy of
+    the magnitudes, with contrast_band_edges' edges."""
+    calls = []
+    real = hopper_contrast.band_select_means_hopper
+
+    def spy(magnitude, edges):
+        calls.append((tuple(magnitude.shape), magnitude.is_contiguous(), tuple(edges)))
+        return real(magnitude, edges)
+
+    monkeypatch.setattr(hopper_contrast, "band_select_means_hopper", spy)
+    mag = torch.from_numpy(_mag((2, 513, 10))).transpose(-1, -2)  # not contiguous
+    for sr, bands in ((SR, 6), (16000, 4)):
+        calls.clear()
+        got = spectral_contrast(mag, sr, bands)
+        assert calls == [((2, 10, 513), True, contrast_band_edges(bands, 513, sr))]
+        assert torch.equal(got, _contrast_sort_loop(mag.contiguous(), sr, bands))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_band_means_model_through_spectral_contrast(monkeypatch, seed):
+    """The numpy replay of the kernel's lane plan, fed through
+    spectral_contrast's floor and log in place of the wrapper, is within
+    1e-4 dB of the CPU path at the backfill's edges (44.1 kHz, 513 bins,
+    6 bands): the kernel's arithmetic as wired."""
+    mag = _mag((4, 64, 513), seed=100 + seed)
+    mag[0, :3] = 0.0  # zero frames: peak 0, contrast 0
+    want = spectral_contrast(torch.from_numpy(mag), SR, 6)
+
+    def model(magnitude, edges):
+        assert edges == contrast_band_edges(6, 513, SR)
+        peak, valley = hopper_contrast.band_means_model(magnitude.numpy(), edges)[:2]
+        return torch.from_numpy(peak), torch.from_numpy(valley)
+
+    monkeypatch.setattr(hopper_contrast, "band_select_means_hopper", model)
+    got = spectral_contrast(torch.from_numpy(mag), SR, 6)
+    assert not got[0, :3].any()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_spectral_contrast_takes_float32_only(dtype):
+    """K9 and its plain version work in float32: another dtype raises at
+    spectral_contrast's entry instead of coming back cast."""
+    mag = torch.from_numpy(_mag((2, 10, 513))).to(dtype)
+    with pytest.raises(ValueError, match="float32"):
+        spectral_contrast(mag, SR, 6)
