@@ -30,6 +30,11 @@ from sonido_sonar_tpu_torch.config.config import ContentAwareConfig, ContentType
 from sonido_sonar_tpu_torch.io.audio import AudioData, AudioMetadata, host_pcm
 from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, as_float32
 from sonido_sonar_tpu_torch.ops.temporal import framed_sum_hopblocks
+from sonido_sonar_tpu_torch.utils.metrics import Span, count_host_sync
+
+# resolve()'s wait for the [K, 9] features on the host (the generator's
+# detection wait)
+DETECT_WAIT = Span("generator.detect_wait")
 
 _MUSIC_GENRES = [
     "rock", "pop", "jazz", "classical", "hip-hop", "hip hop", "country",
@@ -321,8 +326,10 @@ class ContentDetector:
 
         def resolve() -> list:
             if host is not None:
-                if ready is not None:
-                    ready.synchronize()
+                with DETECT_WAIT:
+                    count_host_sync()   # the [K, 9] copy to the host
+                    if ready is not None:
+                        ready.synchronize()
                 feats = host.numpy()
                 for row, i in zip(rows, need):
                     z = feats[row]

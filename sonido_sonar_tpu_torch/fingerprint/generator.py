@@ -36,13 +36,19 @@ from sonido_sonar_tpu_torch.config.config import (
 )
 from sonido_sonar_tpu_torch.config.content_config import ContentAwareConfigManager
 from sonido_sonar_tpu_torch.extractors.base import FeatureExtractorFactory
-from sonido_sonar_tpu_torch.extractors.features import ExtractedFeatures, map_tensors, to_numpy
+from sonido_sonar_tpu_torch.extractors.features import ExtractedFeatures, map_tensors
 from sonido_sonar_tpu_torch.fingerprint.content_detector import ContentDetector
 from sonido_sonar_tpu_torch.io.audio import AudioData
 from sonido_sonar_tpu_torch.ops.stft import stft
 from sonido_sonar_tpu_torch.utils.device import DEFAULT_DEVICE, Device, as_float32
+from sonido_sonar_tpu_torch.utils.metrics import Span, count_host_sync
 
 _log = logging.getLogger(__name__)
+
+DETECT = Span("generator.detect")          # the detector's feature pass and its copy, launched
+EXTRACT = Span("generator.extract")        # one extractor call (speculative ones included)
+MATERIALIZE = Span("generator.materialize")  # the host pulls of a batch's group features
+ASSEMBLE = Span("generator.assemble")      # the per-clip fingerprint objects and feature views
 
 
 @dataclass
@@ -79,12 +85,15 @@ class FingerprintBatch:
     _cm_cache: Optional[Tuple[int, torch.Tensor]] = field(default=None, init=False, repr=False)
 
     def materialize(self) -> List[AudioFingerprint]:
-        """Fill every fingerprint's `features` with host numpy (one pull
-        per group, then per-clip views) and return the list."""
+        """Fill every fingerprint's `features` with host numpy (each
+        tensor of a group pulled once, then per-clip views) and return
+        the list."""
         for _, idxs, features in self.groups:
-            feats_np = to_numpy(features)
-            for pos, i in enumerate(idxs):
-                self.fingerprints[i].features = map_tensors(lambda a, p=pos: a[p], feats_np)
+            with MATERIALIZE:
+                feats_np = map_tensors(_pull, features)
+            with ASSEMBLE:
+                for pos, i in enumerate(idxs):
+                    self.fingerprints[i].features = map_tensors(lambda a, p=pos: a[p], feats_np)
         return self.fingerprints
 
     def comparator_matrix(self, num_mfcc_coeffs: int = 13) -> torch.Tensor:
@@ -109,6 +118,12 @@ class FingerprintBatch:
             out = torch.cat(packs).index_select(0, inv)
         self._cm_cache = (num_mfcc_coeffs, out)
         return out
+
+
+def _pull(t: torch.Tensor) -> np.ndarray:
+    """One feature tensor copied to host numpy: a wait on the card."""
+    count_host_sync()
+    return t.detach().cpu().numpy()
 
 
 class FingerprintGenerator:
@@ -198,10 +213,11 @@ class FingerprintGenerator:
         programs; sports runs its composition there), else its class
         composition over the `stft` of the PCM at the feature config's
         geometry (mixed)."""
-        if hasattr(extractor, "extract_features_from_pcm"):
-            return extractor.extract_features_from_pcm(pcm, sample_rate)
-        spectrogram = stft(pcm, fc.window_size, fc.hop_size, fc.window_type, sample_rate)
-        return extractor.extract_features(spectrogram, pcm, sample_rate)
+        with EXTRACT:
+            if hasattr(extractor, "extract_features_from_pcm"):
+                return extractor.extract_features_from_pcm(pcm, sample_rate)
+            spectrogram = stft(pcm, fc.window_size, fc.hop_size, fc.window_type, sample_rate)
+            return extractor.extract_features(spectrogram, pcm, sample_rate)
 
     def generate_fingerprint(self, audio: AudioData) -> AudioFingerprint:
         """GenerateFingerprint (fingerprint.go:137-236)."""
@@ -295,7 +311,8 @@ class FingerprintGenerator:
             return [] if materialize else FingerprintBatch([], [])
         sr = audios[0].sample_rate
         pcm_all = self._prepare_batch(audios, pcm_matrix)
-        resolve, dispatched = self._detect_content_types_batch_async(audios, pcm_all)
+        with DETECT:
+            resolve, dispatched = self._detect_content_types_batch_async(audios, pcm_all)
         spec_ct = self._spec_ct if (speculate and dispatched) else None
         spec_features = None
         if spec_ct is not None:
@@ -322,8 +339,9 @@ class FingerprintGenerator:
                 pcm = pcm_all[torch.tensor(idxs, device=pcm_all.device)]
                 features = self._extract(extractor, pcm, fc, sr)
             groups.append((ct, idxs, features))
-            for i in idxs:
-                fingerprints[i] = self._assemble_fp(audios[i], ct, sr, extractor, features)
+            with ASSEMBLE:
+                for i in idxs:
+                    fingerprints[i] = self._assemble_fp(audios[i], ct, sr, extractor, features)
 
         batch = FingerprintBatch(fingerprints, groups)
         return batch.materialize() if materialize else batch

@@ -209,7 +209,9 @@ def yin_pitch_hopper(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     yin_pitch_hopper.launches += 1
-    yin_pitch_hopper.amp_launches += int(with_period_amp)
+    if with_period_amp:
+        yin_pitch_hopper.amp_launches += 1
+        yin_pitch_hopper.amp_rows += b
     outs = [o.view(signal.shape[:-1] + (t,)) for o in out.unbind(0)]
     if with_period_amp:
         pitch, conf, amp = outs
@@ -220,6 +222,7 @@ def yin_pitch_hopper(
 
 yin_pitch_hopper.launches = 0      # every launch
 yin_pitch_hopper.amp_launches = 0  # the launches with the period amplitude
+yin_pitch_hopper.amp_rows = 0      # the rows those launches took
 
 
 def yin_difference_plain(

@@ -12,10 +12,12 @@ flag each and does nothing else. Under a `torch.profiler.schedule` the
 session records only in its active steps, so the totals cover the
 traced calls alone. No span stays open across a `yield`.
 
-`host_syncs` counts, always, the sites on the monitor's path where the
-host waits for the card: a push or an index upload from host memory, a
-read of a device flag, a copy of an output to the host. It counts the
-site, not the device, so a CPU run counts what a card run does.
+`host_syncs` counts, always, the sites on the monitor's and the
+generator's paths where the host waits for the card: a push or an index
+upload from host memory, a read of a device flag, a copy of an output to
+the host (the content detector's features, each feature tensor that
+`FingerprintBatch.materialize` pulls). It counts the site, not the
+device, so a CPU run counts what a card run does.
 
 `Metrics` times an entry point's stages on the host clock with the same
 spans, always (`examples/cdn_latency.py` reports them); `profiler_trace`

@@ -44,13 +44,14 @@ from benchmark.core import spec as S  # noqa: E402
 from chip_smoke import card_line  # noqa: E402
 from benchmark.core import trace as T  # noqa: E402
 from sonido_sonar_tpu_torch import monitor  # noqa: E402
+from sonido_sonar_tpu_torch.fingerprint import content_detector, generator  # noqa: E402
 from sonido_sonar_tpu_torch.ops.stats import batched_alignment  # noqa: E402
 from sonido_sonar_tpu_torch.parallel import pipeline  # noqa: E402
 from sonido_sonar_tpu_torch.utils import metrics  # noqa: E402
 from sonido_sonar_tpu_torch.utils.metrics import Span, profiler_trace  # noqa: E402
 
-SPANS = [v for mod in (monitor, batched_alignment, pipeline) for v in vars(mod).values()
-         if isinstance(v, Span)]
+SPANS = [v for mod in (monitor, batched_alignment, pipeline, generator, content_detector)
+         for v in vars(mod).values() if isinstance(v, Span)]
 
 
 def span_cost_ns(n_off: int = 1_000_000, n_on: int = 100_000) -> dict:
