@@ -88,9 +88,12 @@ in the checkout (nvcc, sm_90a) and needs one CUDA card. Phases, in order
      (8 per sub-batch) an unrelated signal, so the 0.7 gate fails and DTW
      runs in both sub-batches: launch counts (fill and backtrack >= 2),
      every related stream within one hop of its lag, ms per measure_all
-     (median of 3), streams per card at a 10 s cadence, peak memory
+     (median of 3), streams per card at a 10 s cadence, peak memory; ms
+     of both sides' whole-window pushes from card tensors and from numpy
+     (staged through pinned memory), the windows unchanged by the latter
  19. LatencyMonitor at 60 s / 30 s (B = 1): one measure through the gate,
-     one past it (the fill at B = 1); ms per measure()
+     one past it (the fill at B = 1); ms per measure() and of both sides'
+     numpy pushes
  20. a 4-stream fleet (12 s, 3 s budget) and align_audio_files on the card
      against the CPU: offsets and methods equal, scores within 1e-4
  21. fill and backtrack against their plain versions, timed at the fleet
@@ -952,6 +955,21 @@ def run_alignment(card: str, dev: torch.device) -> dict:
                          max_lag_seconds=ALIGN_BUDGET, measure_batch=FLEET_BATCH, device=dev)
     fleet.push_source_all(src)
     fleet.push_cdn_all(cdn)
+    # both sides' pushes of a whole window: card tensors (a device copy)
+    # and numpy (staged through pinned memory); the same samples again, so
+    # the windows must not change
+    src_np, cdn_np = src.cpu().numpy(), cdn.cpu().numpy()
+    kept = (fleet._src.buf.clone(), fleet._cdn.buf.clone())
+    push_ms = {}
+    for label, (ps, pc) in (("card tensors", (src, cdn)), ("numpy", (src_np, cdn_np))):
+        steps = timed_steps(lambda: (fleet.push_source_all(ps), fleet.push_cdn_all(pc)), 4)[1:]
+        push_ms[label] = 1e3 * float(np.median(steps))
+    if not (torch.equal(fleet._src.buf, kept[0]) and torch.equal(fleet._cdn.buf, kept[1])):
+        raise AssertionError("fleet: a numpy push of the same samples changed the windows")
+    del kept
+    log(f"fleet pushes of both sides, {FLEET_STREAMS} x {ALIGN_SECONDS} s each: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in push_ms.items())
+        + f" (median of 3 after one warm push) [{card}]")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fill.launches = walk.launches = 0
@@ -994,6 +1012,10 @@ def run_alignment(card: str, dev: torch.device) -> dict:
                              device=dev)
         mon.push_source(src[row])
         mon.push_cdn(cdn[row])
+        steps = timed_steps(lambda: (mon.push_source(src_np[row]), mon.push_cdn(cdn_np[row])), 4)[1:]
+        mon_ms[f"{label}, numpy pushes"] = 1e3 * float(np.median(steps))
+        if not torch.equal(mon._src.buf, src[row]) or not torch.equal(mon._cdn.buf, cdn[row]):
+            raise AssertionError(f"LatencyMonitor ({label}): numpy pushes changed the windows")
         fill.launches = 0
         m = mon.measure(refine=True)
         steps = timed_steps(lambda: mon.measure(refine=True), 3)
@@ -1002,7 +1024,8 @@ def run_alignment(card: str, dev: torch.device) -> dict:
                  else f"injected {lags[row] / SR:+.5f} s")
         log(f"[LatencyMonitor, {label}] {m.method}, latency {m.latency_s:+.5f} s ({truth}), "
             f"confidence {m.confidence:.3f}, fill launches "
-            f"{fill.launches}; {mon_ms[label]:.2f} ms per measure() [{card}]")
+            f"{fill.launches}; {mon_ms[label]:.2f} ms per measure(); both sides' numpy "
+            f"pushes of {ALIGN_SECONDS} s {mon_ms[f'{label}, numpy pushes']:.2f} ms [{card}]")
         if (row in UNRELATED) != (fill.launches > 0) or m.method != res[row].method:
             raise AssertionError(f"LatencyMonitor ({label}): {m.method}, the fill ran "
                                  f"{fill.launches} times; the fleet measured {res[row].method}")

@@ -13,12 +13,23 @@ The windows own their buffers: a push copies the chunk in, so changing
 the pushed array afterwards never changes a window. `device` defaults to
 the card; the CPU runs only when the caller asks for it (`utils/device.py`).
 
+A push from host memory (numpy, a list, a CPU tensor) into a window on
+the card goes through pinned memory: the host copies the chunk's last W
+samples into a pinned float32 buffer (converting the dtype in the same
+pass), then enqueues one non-blocking upload on the device's current
+stream. The buffer comes from torch's caching host allocator, which
+hands it out again only once the upload that reads it has completed;
+the caller's array is copied before `push` returns, and never pinned or
+kept. The window's shift and the upload are enqueued on the same stream,
+so `measure` follows them in stream order with no host wait.
+
 Spans (`utils/metrics.Span`, recorded while a profiler session runs):
 `monitor.measure` around each `measure` / `measure_all` call,
-`monitor.push` around each push, `monitor.host_copy` around the copy of
-a measurement batch's outputs to the host. Each push from host memory,
-sub-batch index upload and output copied adds one to
-`utils/metrics.host_syncs`.
+`monitor.push` around each push, `monitor.stage` around a push's staging
+through pinned memory, `monitor.host_copy` around the copy of a
+measurement batch's outputs to the host. Each push from host memory into
+a CPU window (a blocking copy), sub-batch index upload and output copied
+adds one to `utils/metrics.host_syncs`; a staged push waits on nothing.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from sonido_sonar_tpu_torch.utils.metrics import Span, count_host_sync
 
 MEASURE = Span("monitor.measure")
 PUSH = Span("monitor.push")
+STAGE = Span("monitor.stage")
 HOST_COPY = Span("monitor.host_copy")
 
 _METHOD_NAMES = {0: "energy_correlation", 1: "hybrid_correlation", 2: "hybrid_dtw"}
@@ -48,6 +60,29 @@ class LatencyMeasurement:
     confidence: float
     similarity: float
     method: str
+
+
+def _host_tensor(pcm) -> torch.Tensor:
+    """`pcm` as a tensor in host memory: a view of a numpy array where
+    torch can take one (the staging copy converts its dtype)."""
+    if isinstance(pcm, torch.Tensor):
+        return pcm
+    a = np.asarray(pcm)
+    try:
+        return torch.from_numpy(a)
+    except (TypeError, ValueError):   # a dtype torch lacks, negative strides
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+
+def _stage_into(dst: torch.Tensor, x: torch.Tensor) -> None:
+    """Write host chunk `x` into `dst`, a window's view on the card of x's
+    broadcast shape: one host copy into a pinned float32 buffer, then one
+    non-blocking copy on the device's current stream (torch uploads into a
+    contiguous device block and copies that into a strided `dst`)."""
+    with STAGE:
+        pinned = torch.empty(dst.shape, dtype=torch.float32, pin_memory=True)
+        pinned.copy_(x.expand(dst.shape))    # torch's copy runs on every host core
+        dst.copy_(pinned, non_blocking=True)
 
 
 class _RollingWindow:
@@ -70,22 +105,25 @@ class _RollingWindow:
         ([N, L], or one [L] chunk for all) when row is None. Returns the
         chunk length."""
         with PUSH:
-            x = as_float32(pcm, self.device)
+            on_card = isinstance(pcm, torch.Tensor) and pcm.is_cuda
+            staged = self.device.type == "cuda" and not on_card
+            x = _host_tensor(pcm) if staged else as_float32(pcm, self.device)
             n = int(x.shape[-1])
             if n == 0:
                 return 0
-            if not (isinstance(pcm, torch.Tensor) and pcm.is_cuda):
+            if not (staged or on_card):
                 count_host_sync()   # a blocking copy from host memory
-            x = x.to(self.device)
             buf = self._ensure()
             dst = buf if row is None else buf[row]
             w = self.window
-            if n >= w:
-                dst.copy_(x[..., -w:].expand(dst.shape))
-            else:
+            if n < w:   # the shift, enqueued before the tail is written
                 kept = dst[..., n:].clone()
                 dst[..., : w - n].copy_(kept)
-                dst[..., w - n:].copy_(x.expand(dst.shape[:-1] + (n,)))
+            tail, x = dst[..., w - min(n, w):], x[..., -w:]
+            if staged:
+                _stage_into(tail, x)
+            else:
+                tail.copy_(x.to(self.device).expand(tail.shape))
         if row is None:
             self.filled += n
         else:

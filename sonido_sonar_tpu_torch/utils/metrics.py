@@ -13,11 +13,14 @@ session records only in its active steps, so the totals cover the
 traced calls alone. No span stays open across a `yield`.
 
 `host_syncs` counts, always, the sites on the monitor's and the
-generator's paths where the host waits for the card: a push or an index
-upload from host memory, a read of a device flag, a copy of an output to
-the host (the content detector's features, each feature tensor that
-`FingerprintBatch.materialize` pulls). It counts the site, not the
-device, so a CPU run counts what a card run does.
+generator's paths where the host waits for the card: a push into a CPU
+window or an index upload from host memory, a read of a device flag, a
+copy of an output to the host (the content detector's features, each
+feature tensor that `FingerprintBatch.materialize` pulls). It counts the
+site, not the device, so a CPU run counts what a card run does, but for
+the monitor's pushes: one into a window on the card is staged through
+pinned memory and waits on nothing (a fleet call counts 32 on the CPU,
+30 on the card).
 
 `Metrics` times an entry point's stages on the host clock with the same
 spans, always (`examples/cdn_latency.py` reports them); `profiler_trace`

@@ -3,7 +3,10 @@ the monitor's host waits by site, exactly; outside a profiler session no
 span moves and none enters `record_function`; inside one the spans add
 to their totals and land in the Chrome trace as `user_annotation`
 events, each inside its parent's interval; `run_stream` leaves no span
-open across its yield; `Metrics` times stages with the profiler off."""
+open across its yield; `Metrics` times stages with the profiler off.
+A push from host memory into a window on the card is one `monitor.stage`
+entry and waits on nothing; the `card` cases show it there (the command
+is in `tests/test_torch_monitor.py`'s docstring)."""
 
 import json
 
@@ -22,7 +25,7 @@ from sonido_sonar_tpu_torch import monitor as MON  # noqa: E402
 
 SR = 8000
 CPU = [torch.profiler.ProfilerActivity.CPU]
-SPANS = [MON.MEASURE, MON.PUSH, MON.HOST_COPY, BA.ENERGY, BA.XCORR, BA.GATE_READ, BA.DTW,
+SPANS = [MON.MEASURE, MON.PUSH, MON.STAGE, MON.HOST_COPY, BA.ENERGY, BA.XCORR, BA.GATE_READ, BA.DTW,
          BA.VERIFY_READ, BA.VERIFY, BA.REFINE, P.STAGE, P.UPLOAD, P.STEP, P.WAIT]
 # outputs of batched_align_audio copied to the host: with refine=True the
 # adaptive verification's eleven keys (topk_lags among them) and the refined offset
@@ -42,11 +45,14 @@ def _fleet_chunks(n=4, seconds=8.0):
     return src, cdn
 
 
+def _fleet_monitor(device="cpu"):
+    return FleetMonitor(FeatureConfig(sample_rate=SR, window_size=1024, hop_size=256), n_streams=4,
+                        window_seconds=8.0, max_lag_seconds=1.0, measure_batch=2, device=device)
+
+
 @pytest.fixture
 def fleet():
-    mon = FleetMonitor(FeatureConfig(sample_rate=SR, window_size=1024, hop_size=256), n_streams=4,
-                       window_seconds=8.0, max_lag_seconds=1.0, measure_batch=2, device="cpu")
-    return mon, _fleet_chunks()
+    return _fleet_monitor(), _fleet_chunks()
 
 
 def _call(mon, chunks):
@@ -71,6 +77,51 @@ def test_host_syncs_of_a_fleet_call_are_counted_by_site(fleet):
     before = M.host_syncs
     mon.measure_all(refine=False)
     assert M.host_syncs - before == 2 * (1 + 2 + OUTPUTS - 1)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.card)])
+def test_a_staged_push_is_one_stage_entry_and_waits_on_nothing(device, tmp_path):
+    """Under a profiler session each push from host memory into a window on
+    the card is one `monitor.stage` entry inside its `monitor.push` and adds
+    no host sync; into a CPU window it is a blocking copy, one host sync
+    and no `monitor.stage` entry."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the command is in tests/test_torch_monitor.py)")
+    mon = _fleet_monitor(device)
+    src, cdn = _fleet_chunks()
+    before, syncs = (MON.STAGE.count, MON.PUSH.count), M.host_syncs
+    with torch.profiler.profile(activities=CPU) as prof:
+        mon.push_source_all(src)
+        mon.push_cdn(3, cdn[3])
+        mon.push_cdn_all(torch.from_numpy(cdn).double())
+    staged = 3 if device == "cuda" else 0
+    assert (MON.STAGE.count - before[0], MON.PUSH.count - before[1]) == (staged, 3)
+    assert M.host_syncs - syncs == 3 - staged
+    np.testing.assert_array_equal(mon._cdn.buf.cpu().numpy(), cdn)
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    ann = _annotations(path)
+    pushes = [e for e in ann if e["name"] == "monitor.push"]
+    stages = [e for e in ann if e["name"] == "monitor.stage"]
+    assert len(pushes) == 3
+    assert len(stages) == staged and all(_inside(e, pushes) for e in stages)
+
+
+@pytest.mark.card
+def test_a_card_fleet_call_stages_both_pushes_and_counts_30_syncs():
+    """On the card the benchmark's call stages each side's numpy chunk
+    (two `monitor.stage` entries) and waits only where measure_all does:
+    30 host syncs, the CPU's 32 less the two pushes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the command is in tests/test_torch_monitor.py)")
+    mon, chunks = _fleet_monitor("cuda"), _fleet_chunks()
+    assert all(m is not None for m in _call(mon, chunks))   # the warm call
+    before, syncs = MON.STAGE.count, M.host_syncs
+    with torch.profiler.profile(activities=CPU):
+        res = _call(mon, chunks)
+    assert all(m is not None for m in res)
+    assert MON.STAGE.count - before == 2
+    assert M.host_syncs - syncs == 2 * (1 + 2 + OUTPUTS) == 30
 
 
 def test_a_latency_monitor_and_tensor_pushes_count_their_sites():
