@@ -7,8 +7,9 @@ and band it gives the means of the top and bottom k = max(int(0.2 *
 width), 1) powers (spectral_contrast.go:71-137), the two means
 `ops/spectral.spectral_contrast` floors and turns into dB: every caller
 of `spectral_contrast` takes its band means from this wrapper (where the
-JAX package sorts). `chip_smoke.py` holds the kernel to its plain
-version on the card and times it there against the sorts.
+JAX package sorts). `tests/test_torch_card_kernels.py` holds the kernel
+to its plain version on the card; `tools/time_kernels.py` times it there
+against the sorts.
 
 For a CPU tensor the wrapper runs the plain version (one `torch.sort`
 per band); for a CUDA tensor it launches the kernel or raises — nothing

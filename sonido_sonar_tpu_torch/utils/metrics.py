@@ -157,10 +157,11 @@ def profiler_trace(log_dir: str) -> Iterator[None]:
     kernel that ran within that offset of the recorded step's start fell
     outside it; the idle margin, ~20x the largest offset seen, keeps the
     block clear of that. Why either happens (in kineto or CUPTI) is not
-    known, and a larger offset would still lose records: `chip_smoke.py`
-    phase 36 traces a step several times in its long process, and once
-    in a fresh one, and holds each trace's kernel records to its own
-    launch calls."""
+    known, and a larger offset would still lose records: the card test
+    `test_profiler_trace_records_every_launch`
+    (tests/test_torch_card_entry.py) traces a step several times late in
+    its long process, and once in a fresh one, and holds each trace's
+    kernel records to its own launch calls."""
     cuda = torch.cuda.is_available()
     activities = [torch.profiler.ProfilerActivity.CPU]
     if cuda:

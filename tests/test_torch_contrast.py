@@ -6,7 +6,8 @@ On a CPU tensor the wrapper runs its plain version (one sort per band);
 these tests hold it to JAX's Pallas kernel in interpret mode (as
 tests/test_pallas_contrast.py runs it), to a float64 numpy sort, and its
 band constants to JAX's. The CUDA kernel is held to the plain version on
-the card by chip_smoke.py (utils/parity.check_band_means).
+the card by tests/test_torch_card_kernels.py (`test_k9_*`,
+utils/parity.check_band_means).
 """
 
 import numpy as np

@@ -6,7 +6,8 @@ are held to JAX's lax versions (`dtw._fill_banded`, `_backtrack_banded`)
 and to its three Pallas fills and the Pallas backtrack in interpret mode,
 at the shapes of tests/test_pallas_dtw.py. On a CPU tensor each wrapper
 runs its plain version without building anything; the kernels are held
-to the plain versions on the card by chip_smoke.py. The numpy model of
+to the plain versions on the card by tests/test_torch_card_kernels.py
+(`test_dtw_*`, `test_k8_*`). The numpy model of
 the backtrack kernel's walk (its ring of staged rows and the reads that
 miss it, `hopper_backtrack.walk_model`) is held to the plain walk bit for
 bit, on bands whose path is designed (utils/parity.prescribed_path_band)

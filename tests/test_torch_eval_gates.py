@@ -156,7 +156,7 @@ def test_44k_comb_cases_match_jax():
     packages. The wrong answer is below every accept threshold (gate 3's
     intent), but the category's mean, 0.412, is not below the laxest
     (0.4), so gate 3's category-mean form misses there in JAX as in the
-    port; `chip_smoke.py` phase 35 holds the gate per case."""
+    port; tests/test_torch_card_entry.py holds the gate per case on the card."""
     sr = 44100
     tx = EA.sweep_extractor(sr, "cpu")
     jx = JAlignmentExtractor(JFeatureConfig(sample_rate=sr, window_size=1024, hop_size=256),

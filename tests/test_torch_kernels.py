@@ -6,7 +6,8 @@ On a CPU tensor each wrapper runs its plain PyTorch version; these tests
 hold that version to both of the JAX package's paths: the Pallas kernel
 in interpret mode (as tests/test_pallas_stft.py and test_pallas_yin.py
 run it) and the XLA path JAX takes on the CPU. The CUDA kernels
-themselves are held to the plain versions on the card by chip_smoke.py.
+themselves are held to the plain versions on the card by
+tests/test_torch_card_kernels.py.
 Tolerances are those of sonido_sonar_tpu_torch/utils/parity.py, where
 each has its reason.
 """

@@ -3,8 +3,9 @@ lock of `_build.py`), a twin of tests/test_warmup.py.
 
 JAX's test warms a persistent XLA cache in one process and finds hits in
 a second. The port's one compiled artifact is the kernel library, which
-only nvcc on a card machine builds (`chip_smoke.py` phase 40 runs the two
-processes there). Here: `warmup(device="cpu")` runs every component at a
+only nvcc on a card machine builds
+(`tests/test_torch_card_entry.py::test_warmup_cache_across_fresh_processes`
+runs the processes there). Here: `warmup(device="cpu")` runs every component at a
 small shape and reports JAX's stage names; `enable_persistent_cache`
 moves the library under the given directory with the same source-hash
 name; and, with nvcc and the loader replaced by fakes, `build()` counts

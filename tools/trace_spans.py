@@ -41,7 +41,6 @@ if str(ROOT) not in sys.path:
 import torch  # noqa: E402
 
 from benchmark.core import spec as S  # noqa: E402
-from chip_smoke import card_line  # noqa: E402
 from benchmark.core import trace as T  # noqa: E402
 from sonido_sonar_tpu_torch import monitor  # noqa: E402
 from sonido_sonar_tpu_torch.fingerprint import content_detector, generator  # noqa: E402
@@ -49,6 +48,7 @@ from sonido_sonar_tpu_torch.ops.stats import batched_alignment  # noqa: E402
 from sonido_sonar_tpu_torch.parallel import pipeline  # noqa: E402
 from sonido_sonar_tpu_torch.utils import metrics  # noqa: E402
 from sonido_sonar_tpu_torch.utils.metrics import Span, profiler_trace  # noqa: E402
+from tools.time_kernels import card_line  # noqa: E402
 
 SPANS = [v for mod in (monitor, batched_alignment, pipeline, generator, content_detector)
          for v in vars(mod).values() if isinstance(v, Span)]
