@@ -22,8 +22,8 @@ Counterpart of `sonido_sonar_tpu/parallel/pipeline.py`:
 - `BatchedFingerprintPipeline`: `batched_fingerprint_features` with the
   batch sharded over a device mesh (`parallel/mesh.py`), K1 and K2
   launched once per shard.
-- `run_stream`: a stream of [B, N] batches through any of them with the
-  uploads and steps overlapping the host.
+- `run_stream`: a stream of [B, N] batches through any of them, each
+  host batch's upload on a copy stream beside the steps before it.
 On a CPU tensor every kernel runs its plain PyTorch version. Each
 function takes `device` (the card by default): a tensor stays on its own
 device, numpy input goes to `device` (utils/device.as_float32).
@@ -551,16 +551,21 @@ def run_stream(
 
     A numpy batch bound for the card is staged in pinned host memory and
     uploaded by a non-blocking copy (what JAX's asynchronous `device_put`
-    gives), so its upload and step overlap the host's use of earlier
-    results; other numpy batches go to `device`, a tensor stays on its own.
-    A CUDA event recorded after each step marks it done: at most
-    `drain_every + 1` steps are in flight, and each result is yielded, in
-    order, once its event has completed. A step's staging buffer is held
-    until then, so no buffer is reused while its copy may be reading it.
-    `pipeline` is any callable on a [B, N] batch (`models.FingerprintModel`,
-    a partial of `batched_fingerprint_features`).
+    gives) on a copy stream of the call's own, beside the steps before it:
+    the compute stream waits on an event recorded after the copy, and the
+    uploaded batch is recorded on the compute stream, so that its memory
+    goes to no later upload while its step may read it
+    (`run_stream.copy_uploads` counts these uploads). Other numpy batches
+    go to `device`, a tensor stays on its own. A CUDA event recorded after
+    each step marks it done: at most `drain_every + 1` steps are in flight,
+    and each result is yielded, in order, once its event has completed. A
+    step's staging buffer is held until then, so no buffer is reused while
+    its copy may be reading it. `pipeline` is any callable on a [B, N]
+    batch (`models.FingerprintModel`, a partial of
+    `batched_fingerprint_features`).
     """
     dev = torch.device(device)
+    copy = None   # made at the first host batch bound for the card
     inflight = collections.deque()
 
     def drained():
@@ -578,7 +583,14 @@ def run_stream(
                 staged = torch.empty(host.shape, dtype=torch.float32, pin_memory=True)
                 staged.copy_(host)  # torch's copy runs on every host core
             with UPLOAD:
-                x = staged.to(dev, non_blocking=True)
+                if copy is None:
+                    copy = torch.cuda.Stream(device=dev)
+                compute = torch.cuda.current_stream(dev)
+                with torch.cuda.stream(copy):
+                    x = staged.to(dev, non_blocking=True)
+                compute.wait_event(copy.record_event())
+                x.record_stream(compute)
+            run_stream.copy_uploads += 1
         else:
             x = as_float32(batch, dev)
         with STEP:
@@ -592,3 +604,6 @@ def run_stream(
             yield drained()
     while inflight:
         yield drained()
+
+
+run_stream.copy_uploads = 0   # host batches uploaded on a copy stream

@@ -34,6 +34,7 @@ STEREO_FILES, STEREO_SR = 4, 48000        # stereo 16-bit WAVs, resampled on dec
 WAV_ATOL = 1e-6                           # tests/test_native_io.py's native-vs-stdlib bound
 QUERY_FILE = 17                           # the corpus query: this file plus noise
 STREAM_BATCHES = 8                        # host batches of FULL_B x 30 s through run_stream
+SLEEP_CYCLES = 200_000_000                # ~0.1 s at 1.98 GHz: longer than the host takes to stage a batch
 TRACE_ROUNDS = 3                          # traces in this process, each held to the fresh one's
 
 
@@ -212,24 +213,56 @@ def test_accuracy_sweep_at_22k_card_against_cpu(card):
 
 # -- run_stream, batch_monitor and profiler_trace ----------------------------------------
 
-def test_run_stream_bit_equal_to_blocking_calls(card):
-    """models.FingerprintModel over 8 host batches of 128 x 30 s under
-    run_stream(drain_every=2) and as blocking calls: the outputs bit-equal,
-    in order; K1 and K2 launched once a batch."""
-    from sonido_sonar_tpu_torch.models import FingerprintModel
-    from sonido_sonar_tpu_torch.parallel.pipeline import run_stream
+@pytest.fixture(scope="module")
+def stream_batches(card):
+    """STREAM_BATCHES distinct host batches of FULL_B x 30 s: one synthetic
+    batch rolled by 0.1 s and scaled down 3 % a batch."""
     from sonido_sonar_tpu_torch.utils import parity
 
     base = parity.synth_pcm(FULL_B, C.N_FULL, SEED + 36, SR).numpy()
-    batches = [np.roll(base, 4410 * k, axis=1) * np.float32(1.0 - 0.03 * k) for k in range(STREAM_BATCHES)]
-    del base
+    return [np.roll(base, 4410 * k, axis=1) * np.float32(1.0 - 0.03 * k) for k in range(STREAM_BATCHES)]
+
+
+@pytest.mark.parametrize("drain_every", [0, 1, 2, 3])
+def test_run_stream_bit_equal_to_blocking_calls(card, stream_batches, drain_every):
+    """models.FingerprintModel over 8 host batches of 128 x 30 s under
+    run_stream and as blocking calls: the outputs bit-equal, in order; K1
+    and K2 launched once a batch; each batch uploaded on the copy stream."""
+    from sonido_sonar_tpu_torch.models import FingerprintModel
+    from sonido_sonar_tpu_torch.parallel.pipeline import run_stream
+
     model = FingerprintModel(device=card.dev)
-    want = [model(torch.from_numpy(b).to(card.dev)) for b in batches]
-    got, launches = counted(lambda: list(run_stream(model, batches, drain_every=2, device=card.dev)))
+    want = [model(torch.from_numpy(b).to(card.dev)) for b in stream_batches]
+    before = run_stream.copy_uploads
+    got, launches = counted(lambda: list(run_stream(model, stream_batches, drain_every=drain_every,
+                                                    device=card.dev)))
+    assert run_stream.copy_uploads - before == STREAM_BATCHES
     assert len(got) == len(want)
     for k, (g, w) in enumerate(zip(got, want)):
         assert sorted(g) == sorted(w) and all(torch.equal(g[key], w[key]) for key in w), f"step {k}"
     assert launches["K1"] == STREAM_BATCHES and launches["K2"] == STREAM_BATCHES, launches
+
+
+def _sleep_then_read(x):
+    torch.cuda._sleep(SLEEP_CYCLES)
+    return x.clone()
+
+
+@pytest.mark.parametrize("step", [pytest.param(_sleep_then_read, id="sleep_then_read"),
+                                  pytest.param(torch.clone, id="read_at_once")])
+def test_run_stream_steps_read_their_own_upload(card, stream_batches, step):
+    """Two steps that show the copy stream's hazards, each bit-equal to
+    blocking calls over the 8 host batches under run_stream(drain_every=2).
+    A step that sleeps on the compute stream before it reads its batch
+    reads a later batch if the batch's memory went to a later upload while
+    the step still held it; a step that reads its batch at once reads a
+    partial upload if it does not wait for the copy."""
+    from sonido_sonar_tpu_torch.parallel.pipeline import run_stream
+
+    got = list(run_stream(step, stream_batches, drain_every=2, device=card.dev))
+    assert len(got) == STREAM_BATCHES
+    for k, (g, b) in enumerate(zip(got, stream_batches)):
+        assert torch.equal(g, step(torch.from_numpy(b).to(card.dev))), f"step {k}"
 
 
 @pytest.mark.parametrize("n_pairs,seconds", [(8, 12.0), (64, 60.0)])

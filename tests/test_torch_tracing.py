@@ -199,6 +199,26 @@ def test_run_stream_closes_its_spans_before_each_yield():
     assert P.STEP.count - before == 4
 
 
+@pytest.mark.parametrize("feed,device", [("numpy", "cpu"), ("tensor", "cuda")])
+def test_run_stream_makes_no_copy_upload_off_the_card(feed, device):
+    """Numpy batches bound for the CPU, and tensor batches (which stay on
+    their own device, here the CPU, whatever `device` says), take no copy
+    stream: `run_stream.copy_uploads` stays put and the spans still close
+    before each yield."""
+    batches = [np.full((2, 16), i, np.float32) for i in range(5)]
+    if feed == "tensor":
+        batches = [torch.from_numpy(b) for b in batches]
+    before = P.run_stream.copy_uploads
+    with torch.profiler.profile(activities=CPU):
+        seen = []
+        for out in P.run_stream(lambda x: x * 2, batches, drain_every=2, device=device):
+            assert all(s._open == 0 for s in (P.STAGE, P.UPLOAD, P.STEP, P.WAIT))
+            assert out.device.type == "cpu"
+            seen.append(float(out[0, 0]))
+    assert seen == [0.0, 2.0, 4.0, 6.0, 8.0]
+    assert P.run_stream.copy_uploads == before
+
+
 def test_a_span_is_on_only_in_the_recorded_steps_of_a_schedule():
     span = M.Span("test.scheduled")
     sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
