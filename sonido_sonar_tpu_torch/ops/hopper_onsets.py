@@ -7,7 +7,9 @@ row left to right, candidate i is kept iff i - last_kept >= min_frames,
 with last_kept starting at -min_frames - 1 (ops/temporal.py:250-254).
 For a CPU tensor the wrapper runs the plain version; for a CUDA tensor
 it launches the kernel or raises — nothing falls back. Both give the
-same bits: the recurrence makes integer decisions only.
+same bits: the recurrence makes integer decisions only. Each launch
+adds one to `thin_onsets_hopper.launches` and its rows x frames to
+`thin_onsets_hopper.cells` (what a roofline of the launch reads).
 `thin_onsets_model` replays the kernel's plan (tiles, candidate words,
 the walk that seeks words and steps through each on its bitmask) in
 numpy, so the CPU tests hold the plan itself.
@@ -144,7 +146,9 @@ def thin_onsets_hopper(cand: torch.Tensor, min_frames: int) -> torch.Tensor:
             int(min_frames), torch.cuda.current_stream(cand.device).cuda_stream,
         )
     thin_onsets_hopper.launches += 1
+    thin_onsets_hopper.cells += flat.shape[0] * t
     return kept.view(cand.shape)
 
 
 thin_onsets_hopper.launches = 0
+thin_onsets_hopper.cells = 0      # rows x frames the launches took

@@ -226,6 +226,17 @@ def batched_speech_extractor_features(
     return out
 
 
+# batched_music_extractor_features' stages (utils/metrics.Span, recorded
+# while a profiler session runs); the tempo is a stage of its own, not
+# nested in the temporal one
+MUSIC_SPECTRAL = Span("music.spectral")
+MUSIC_CHROMA = Span("music.chroma")
+MUSIC_TEMPORAL = Span("music.temporal")
+MUSIC_TEMPO = Span("music.tempo")
+MUSIC_ENERGY = Span("music.energy")
+MUSIC_HARMONIC = Span("music.harmonic")
+
+
 def batched_music_extractor_features(
     pcm: torch.Tensor,
     sample_rate: int = 44100,
@@ -243,81 +254,90 @@ def batched_music_extractor_features(
     per-frame pitch / HNR / inharmonicity over the contiguous frame split.
     `enable_cqt` adds "chroma_cqt" [B, T', 12] (the CQT chroma of the raw
     PCM, hop 512) and `enable_hpcp` adds "hpcp" [B, T, 12] (from K1's
-    magnitudes), as JAX `pipeline.py:455-458`; both are plain PyTorch."""
+    magnitudes), as JAX `pipeline.py:455-458`; both are plain PyTorch.
+    Each stage runs under its span (`music.spectral`, which holds the
+    preprocessing and K1 too, `music.chroma`, `music.temporal`,
+    `music.tempo`, `music.energy`, `music.harmonic`)."""
     x = as_float32(pcm, device).contiguous()
     require_fp32_matmuls(x, "batched_music_extractor_features")
-    pre = pre_emphasis_for_content(dc_removal(x), "music")
-    mag, _ = stft_magnitude_hopper(x, window_size, hop_size)
-    t = mag.shape[-2]
     out: Dict[str, torch.Tensor] = {}
 
     # spectral (music.go:261-302); ZCR of the preprocessed signal
-    out.update(S.spectral_descriptor_bundle(mag, sample_rate))
-    out["spectral_contrast"] = S.spectral_contrast(mag, sample_rate, 6)
-    out["zcr"] = S.zcr_from_signal(pre, window_size, hop_size, sample_rate)[..., :t]
-    out["mfcc"] = mfcc(
-        mag, sample_rate, window_size,
-        MFCCParams(num_coefficients=13, num_mel_filters=26, lifter_coeff=22.0),
-    )
+    with MUSIC_SPECTRAL:
+        pre = pre_emphasis_for_content(dc_removal(x), "music")
+        mag, _ = stft_magnitude_hopper(x, window_size, hop_size)
+        t = mag.shape[-2]
+        out.update(S.spectral_descriptor_bundle(mag, sample_rate))
+        out["spectral_contrast"] = S.spectral_contrast(mag, sample_rate, 6)
+        out["zcr"] = S.zcr_from_signal(pre, window_size, hop_size, sample_rate)[..., :t]
+        out["mfcc"] = mfcc(
+            mag, sample_rate, window_size,
+            MFCCParams(num_coefficients=13, num_mel_filters=26, lifter_coeff=22.0),
+        )
 
     # chroma + key + chords
-    chroma = chroma_from_magnitude(mag, sample_rate, window_size)
-    out["chroma"] = chroma
-    out["key_correlations"] = key_correlations(torch.mean(chroma, dim=-2))
-    cn = chroma / torch.clamp_min(torch.linalg.vector_norm(chroma, dim=-1, keepdim=True), _EPS)
-    chord_sims = torch.matmul(cn, device_table(chord_matrix, (), mag.device).T)  # [B, T, chords]
-    out["chord_index"] = torch.argmax(chord_sims, dim=-1).to(torch.int32)
-    out["chord_score"] = torch.amax(chord_sims, dim=-1)
+    with MUSIC_CHROMA:
+        chroma = chroma_from_magnitude(mag, sample_rate, window_size)
+        out["chroma"] = chroma
+        out["key_correlations"] = key_correlations(torch.mean(chroma, dim=-2))
+        cn = chroma / torch.clamp_min(torch.linalg.vector_norm(chroma, dim=-1, keepdim=True), _EPS)
+        chord_sims = torch.matmul(cn, device_table(chord_matrix, (), mag.device).T)  # [B, T, chords]
+        out["chord_index"] = torch.argmax(chord_sims, dim=-1).to(torch.int32)
+        out["chord_score"] = torch.amax(chord_sims, dim=-1)
 
     # temporal (music.go:378-430)
-    out["rms_energy"] = T.short_time_energy(pre, window_size, hop_size)
-    onset_mask, onset_count = T.detect_onsets_from_flux(
-        spectral_flux(mag), hop_size, sample_rate, threshold=0.3, min_interval_sec=0.05
-    )
-    out["onset_mask"] = onset_mask
-    out["onset_density"] = onset_count.to(torch.float32) / (x.shape[-1] / float(sample_rate))
-    out["attack_time"] = torch.where(onset_mask, 0.01, 0.0)
-    out["peak_amplitude"] = torch.amax(torch.abs(pre), dim=-1)
-    out["average_amplitude"] = torch.mean(torch.abs(pre), dim=-1)
-    # fixed 1024/512 framing per dynamic_range.go:27-28
-    out["dynamic_range"] = T.dynamic_range_db(pre, 1024, 512)
-    out["crest_factor"] = T.crest_factor_frames(pre, window_size, hop_size)
-    silence = T.silence_mask_db(pre, window_size, hop_size, -40.0)
-    out["silence_ratio"] = torch.mean(silence.to(torch.float32), dim=-1)
-    # music envelope framing (music.go:383-386): frame len/numFrames, config hop
-    env_frame = max(pre.shape[-1] // out["rms_energy"].shape[-1], 1)
-    out["envelope_shape"] = T.rms_envelope(pre, env_frame, hop_size)
-    out["tempo_bpm"] = T.estimate_tempo(pre, sample_rate)
+    with MUSIC_TEMPORAL:
+        out["rms_energy"] = T.short_time_energy(pre, window_size, hop_size)
+        onset_mask, onset_count = T.detect_onsets_from_flux(
+            spectral_flux(mag), hop_size, sample_rate, threshold=0.3, min_interval_sec=0.05
+        )
+        out["onset_mask"] = onset_mask
+        out["onset_density"] = onset_count.to(torch.float32) / (x.shape[-1] / float(sample_rate))
+        out["attack_time"] = torch.where(onset_mask, 0.01, 0.0)
+        out["peak_amplitude"] = torch.amax(torch.abs(pre), dim=-1)
+        out["average_amplitude"] = torch.mean(torch.abs(pre), dim=-1)
+        # fixed 1024/512 framing per dynamic_range.go:27-28
+        out["dynamic_range"] = T.dynamic_range_db(pre, 1024, 512)
+        out["crest_factor"] = T.crest_factor_frames(pre, window_size, hop_size)
+        silence = T.silence_mask_db(pre, window_size, hop_size, -40.0)
+        out["silence_ratio"] = torch.mean(silence.to(torch.float32), dim=-1)
+        # music envelope framing (music.go:383-386): frame len/numFrames, config hop
+        env_frame = max(pre.shape[-1] // out["rms_energy"].shape[-1], 1)
+        out["envelope_shape"] = T.rms_envelope(pre, env_frame, hop_size)
+    with MUSIC_TEMPO:
+        out["tempo_bpm"] = T.estimate_tempo(pre, sample_rate)
 
     # energy (music.go:478-525)
-    ste = out["rms_energy"]
-    out["energy_variance"] = T.energy_variance(ste)
-    out["energy_entropy"] = torch.where(ste > 0, -ste * torch.log(ste + 1e-10), 0.0)
-    out["loudness_range"] = T.loudness_range(pre, sample_rate)
-    power = mag * mag
-    split = mag.shape[-1] // 4
-    total = torch.sum(power, dim=-1)
-    denom = torch.clamp_min(total, _EPS)
-    out["low_energy_ratio"] = torch.where(total > 0, torch.sum(power[..., :split], dim=-1) / denom, 0.0)
-    out["high_energy_ratio"] = torch.where(total > 0, torch.sum(power[..., split:], dim=-1) / denom, 0.0)
+    with MUSIC_ENERGY:
+        ste = out["rms_energy"]
+        out["energy_variance"] = T.energy_variance(ste)
+        out["energy_entropy"] = torch.where(ste > 0, -ste * torch.log(ste + 1e-10), 0.0)
+        out["loudness_range"] = T.loudness_range(pre, sample_rate)
+        power = mag * mag
+        split = mag.shape[-1] // 4
+        total = torch.sum(power, dim=-1)
+        denom = torch.clamp_min(total, _EPS)
+        out["low_energy_ratio"] = torch.where(total > 0, torch.sum(power[..., :split], dim=-1) / denom, 0.0)
+        out["high_energy_ratio"] = torch.where(total > 0, torch.sum(power[..., split:], dim=-1) / denom, 0.0)
 
     # harmonic (music.go:528-592) over the contiguous frame split
     # (frame len/numFrames, no overlap). This YIN and hnr_acf are plain
     # PyTorch on every device, not K2's plain version standing in for a
     # kernel: the JAX package runs them as XLA (ops/pitch.yin_pitch on
     # [B, T, N/T] frames, the DFT-matmul hnr_acf) on the TPU too.
-    frame_size = x.shape[-1] // t
-    frames = pre[..., : t * frame_size].reshape(pre.shape[:-1] + (t, frame_size))
-    pitch, conf, voicing = yin_pitch(frames, PitchParams(sample_rate=sample_rate, window_size=frame_size))
-    hnr = hnr_acf(frames, sample_rate, torch.clamp_min(pitch, 1.0))
-    out["pitch"] = pitch
-    out["pitch_confidence"] = conf
-    out["voicing"] = voicing
-    out["hnr"] = torch.where(pitch > 0, hnr, 0.0)
-    out["inharmonicity"] = torch.where(
-        (pitch > 0) & (conf > 0.5), 1.0 - torch.clamp(voicing, 0.0, 1.0), 0.0
-    )
-    out["tonal_centroid"] = out["spectral_centroid"][..., :t] * voicing
+    with MUSIC_HARMONIC:
+        frame_size = x.shape[-1] // t
+        frames = pre[..., : t * frame_size].reshape(pre.shape[:-1] + (t, frame_size))
+        pitch, conf, voicing = yin_pitch(frames, PitchParams(sample_rate=sample_rate, window_size=frame_size))
+        hnr = hnr_acf(frames, sample_rate, torch.clamp_min(pitch, 1.0))
+        out["pitch"] = pitch
+        out["pitch_confidence"] = conf
+        out["voicing"] = voicing
+        out["hnr"] = torch.where(pitch > 0, hnr, 0.0)
+        out["inharmonicity"] = torch.where(
+            (pitch > 0) & (conf > 0.5), 1.0 - torch.clamp(voicing, 0.0, 1.0), 0.0
+        )
+        out["tonal_centroid"] = out["spectral_centroid"][..., :t] * voicing
 
     # the optional CQT and HPCP chromas (beyond the per-signal payload)
     if enable_cqt:
